@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from dsptpu_torch/csrc, holds each one
-against its plain PyTorch version on the card (at one ragged small shape
-per case and at the shapes of the main path), then drives the main path
-once through dsptpu_torch.entry(device="cuda") at full width (x of
-1,000,000 x 64 float32: 127-tap FIR -> 8th-order Butterworth SOS cascade
--> Welch + STFT power, nfft 1024, hop 512), checks that every kernel of
-the path was launched, and compares its output with a float64 run of the
-same chain on the card. The STFT kernel is also held to its plain
-version bin by bin, on white input at the main path's shapes. Kernel
-times are CUDA-event medians; one more
-call of the main path runs under torch.profiler, for the device time by
-kernel and the device's busy share.
+against its plain PyTorch version on the card (at small ragged shapes
+and at the shapes of the path that runs it), then drives three paths at
+full width through their entry points, each with the launch counts set
+to 0 just before it and read just after:
+
+  * the main path, dsptpu_torch.entry(device="cuda"): x of 1,000,000 x 64
+    float32, 127-tap FIR (K1) -> 8th-order Butterworth SOS cascade (K2)
+    -> Welch + STFT power (K3), nfft 1024, hop 512;
+  * path A, fftfilt_entry(): fftfilt of x (10,000,000 x 16) float32 with
+    a 4096-tap FIR by overlap-save blocks of 16384 points (K4);
+  * path B, filtfilt_lpc_entry(): zero-phase Butterworth(8) filtfilt of
+    x (1,000,000 x 64) float32 (K2 forward, then reverse with n_eff) and
+    order-16 Levinson LPC of 2500 frames of 400 samples (K5); then the
+    single-channel filtfilt (1,000,000 x 1) of dsptpu's BASELINE.
+
+Each path's output is compared with a float64 run of the same call on
+the card. The STFT kernel is also held to its plain version bin by bin,
+on white input at the main path's shapes. Kernel times are CUDA-event
+medians; one more call of each path runs under torch.profiler, for the
+device time by kernel and the device's busy share.
 
 Prints, in order: the card (nvidia-smi name and power limit), the build,
 one line per comparison, the main path, a JSON line {"kernels": [...]}
@@ -35,7 +44,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5}
+TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
+       "biir_reverse": 1e-4, "levinson": 1e-4}
 
 
 def log(*a):
@@ -116,7 +126,7 @@ def small_cases(dev):
     import torch
     from dsptpu_torch.filters.filt import _blockss, _stack_cascade
     from dsptpu_torch.filters.filt import _single_ss
-    from dsptpu_torch.kernels import biir, fir, stft
+    from dsptpu_torch.kernels import biir, fir, levinson, osconv, stft
     from dsptpu_torch import Butterworth, Lowpass, as_sos, digitalfilter
     rng = np.random.default_rng(1)
 
@@ -174,12 +184,57 @@ def small_cases(dev):
                     f"{'sum' if acc else 'frames'} n={n} C={C} "
                     f"nfft={nfft} hop={hop} nbins={nbins}", by_bin=True)
 
+    # K4: each nfft with a short filter and the longest its gate takes
+    # (advance L >= max(128, 16 N1)); two non-power-of-two sizes run the
+    # odd radix stage
+    for nfft, nvs in [(1024, (127, 897)), (4096, (1025, 3585)),
+                      (8192, (300, 7169)), (16384, (4096, 14337)),
+                      (1920, (500,)), (384, (200,))]:
+        for nv in nvs:
+            for n, C in [(nfft * 3 + 77, 1), (nfft * 5 + 13, 3),
+                         (nfft * 2 + 101, 16), (nfft * 4 + 1, 17)]:
+                x = t(rng.standard_normal((n, C)))
+                v = t(rng.standard_normal(nv))
+                for out_len in (n + nv - 1, n):
+                    compare("osconv", osconv.osconv(x, v, nfft, out_len),
+                            osconv.osconv_reference(x, v, nfft, out_len),
+                            f"nfft={nfft} nv={nv} n={n} C={C} "
+                            f"out_len={out_len}")
 
-def profile_main_path(forward, x, call_ms):
-    """Device time by kernel over one call of the main path
-    (torch.profiler), and its share of call_ms, the call's unprofiled
-    time."""
+    # K2 reverse, whole signal and n_eff, p = 3, 8, 20
+    ss3 = _blockss(*_single_ss([0.2, 0.1, 0.05, 0.02],
+                               [1.0, -0.5, 0.25, -0.1]))
+    sos8 = as_sos(digitalfilter(Lowpass(0.2), Butterworth(8)))
+    ss8 = _blockss(*_stack_cascade(sos8.sos_array(), sos8.g))
+    ss20 = _blockss(*_stack_cascade(sos10, 1.0))
+    for ss in (ss3, ss8, ss20):
+        for n, C in [(5003, 1), (4097, 3), (70001, 64)]:
+            x = t(rng.standard_normal((n, C)))
+            z0 = t(rng.standard_normal((ss.p, C)))
+            for m in (None, (n // 128) * 128):
+                compare("biir_reverse",
+                        biir.blockss_filt(ss, x, z0, reverse=True, n_eff=m),
+                        biir.blockss_reference(ss, x, z0, reverse=True,
+                                               n_eff=m),
+                        f"p={ss.p} n={n} C={C} n_eff={m}")
+
+    # K5
+    for p in (2, 16, 32, 64):
+        for C in (128, 300, 2500):
+            x = t(rng.standard_normal((400, C)))
+            R = torch.stack([(x[: 400 - lag] * x[lag:]).sum(0) / 400
+                             for lag in range(p + 1)])
+            for name, g, w in zip(("a", "err", "refl"),
+                                  levinson.levinson(R, p),
+                                  levinson.levinson_reference(R, p)):
+                compare("levinson", g, w, f"{name} p={p} C={C}")
+
+
+def profile_main_path(forward, x, call_ms, label="main path"):
+    """Device time by kernel over one call of a path (torch.profiler),
+    and its share of call_ms, the call's unprofiled time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     forward(x)
     torch.cuda.synchronize()
@@ -190,9 +245,185 @@ def profile_main_path(forward, x, call_ms):
     avg = prof.key_averages()
     log(avg.table(sort_by="self_cuda_time_total", row_limit=14,
                   max_name_column_width=40))
-    busy_ms = sum(e.self_device_time_total for e in avg) / 1e3
-    log(f"profile: device busy {busy_ms:.3f} ms of a {call_ms:.3f} ms call "
-        f"(idle share {max(0.0, 1 - busy_ms / call_ms):.3f})")
+    # device-side events only: a torch op's own entry repeats the time
+    # of the kernels it launched
+    busy_ms = sum(e.self_device_time_total for e in avg
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    log(f"profile ({label}): device busy {busy_ms:.3f} ms of a "
+        f"{call_ms:.3f} ms call (idle share "
+        f"{max(0.0, 1 - busy_ms / call_ms):.3f})")
+
+
+def path_a(dev):
+    """Path A at full width: K4 against its plain version and the
+    library's overlap-save at the path's shapes, fftfilt_entry() with its
+    launch counts, its time, and float32 against float64 on the card."""
+    import torch
+    import dsptpu_torch
+    from dsptpu_torch import kernels
+    from dsptpu_torch.kernels import osconv
+    from dsptpu_torch.ops.dspbase import optimal_os_nfft
+    from dsptpu_torch.pipeline import fftfilt_taps
+
+    forward, (x,) = dsptpu_torch.fftfilt_entry(device="cuda")
+    n, C = x.shape
+    h = torch.as_tensor(fftfilt_taps(), device=dev)
+    nv = h.shape[0]
+    nfft = optimal_os_nfft(n, nv)
+    if not osconv.osconv_supported(nfft, nv, torch.float32):
+        raise AssertionError(f"path A: nfft {nfft} fails K4's gate")
+    L = ((nfft - nv + 1) // 128) * 128
+    K = -(-n // L)
+    log(f"path A: x ({n}, {C}) float32, {nv} taps, nfft {nfft}, advance "
+        f"{L}, {K} frames per channel")
+    y = osconv.osconv(x, h, nfft, n)
+    err = compare("osconv", y, osconv.osconv_reference(x, h, nfft, n),
+                  "path A shapes")
+    del y
+
+    def library():
+        # cuFFT overlap-save over unfolded frames, as one would write it
+        # with torch alone
+        S = nfft - L
+        fr = torch.nn.functional.pad(x.T, (S, (K - 1) * L + nfft - S - n))
+        fr = fr.unfold(-1, nfft, L)
+        H = torch.fft.rfft(h, n=nfft)
+        yy = torch.fft.irfft(torch.fft.rfft(fr, dim=-1) * H, n=nfft, dim=-1)
+        return yy[..., S:].reshape(C, K * L)[:, :n].T
+
+    # what the function needs per frame: two real FFTs and the product
+    flops = C * K * (5 * nfft * np.log2(nfft) + 6 * nfft)
+    row = dict(
+        name="osconv", route="cuda", source="dsptpu_torch/csrc/osconv.cu",
+        replaces="dsptpu/kernels/osconv.py:267", max_abs_err=err,
+        ms=time_ms(lambda: osconv.osconv(x, h, nfft, n)),
+        plain_ms=time_ms(lambda: osconv.osconv_reference(x, h, nfft, n)),
+        library_ms=time_ms(library),
+        bound=bound(2 * n * C * 4 + nv * 4, flops))
+    report(row)
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    y = forward(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"path A: launches {counts}")
+    if counts["osconv"] < 1 or counts["fir"] != 0:
+        raise AssertionError(f"path A missed K4 or took K1: {counts}")
+    if y.shape != (n, C) or not torch.isfinite(y).all():
+        raise AssertionError(f"path A: shape {tuple(y.shape)} or "
+                             "non-finite output")
+    e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
+    log(f"path A end to end: {e2e:.3f} ms (median of 5)")
+    profile_main_path(forward, x, e2e, "path A")
+    compare("osconv", y, forward(x.double()), "path A fftfilt vs float64")
+    return counts, [row]
+
+
+def path_b(dev):
+    """Path B at full width: K2's reverse pass with n_eff and K5 against
+    their plain versions at the path's shapes, filtfilt_lpc_entry() with
+    its launch counts, its time, float32 against float64 on the card,
+    and the BASELINE's single-channel filtfilt."""
+    import torch
+    import dsptpu_torch
+    from dsptpu_torch import kernels
+    from dsptpu_torch.filters.filt import _blockss, _stack_cascade
+    from dsptpu_torch.kernels import biir, levinson
+
+    forward, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda")
+    n, C = x.shape
+    f = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.2), dsptpu_torch.Butterworth(8)))
+    ss = _blockss(*_stack_cascade(f.sos_array(), f.g))
+    pad = 6 * len(f.biquads)
+    m = (n // 128) * 128
+    log(f"path B: x ({n}, {C}) float32, {len(f.biquads)} sections "
+        f"(p = {ss.p}), pad {pad}, reverse pass over n_eff = {m}")
+    # the reverse pass's input is the forward pass's output over n + pad
+    xe = torch.cat([x, x[n - 1 - pad: n - 1].flip(0)], 0)
+    z0 = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (ss.p, C)).astype(np.float32), device=dev)
+    y1 = biir.blockss_filt(ss, xe, z0)
+    del xe
+    err_r = compare("biir_reverse",
+                    biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m),
+                    biir.blockss_reference(ss, y1, z0, reverse=True,
+                                           n_eff=m), "path B shapes")
+    rows = [dict(
+        name="biir_reverse", route="cuda", source="dsptpu_torch/csrc/biir.cu",
+        replaces="dsptpu/kernels/biir.py:242", max_abs_err=err_r,
+        ms=time_ms(lambda: biir.blockss_filt(ss, y1, z0, reverse=True,
+                                             n_eff=m)),
+        plain_ms=time_ms(lambda: biir.blockss_reference(
+            ss, y1, z0, reverse=True, n_eff=m)),
+        library_ms=None,
+        bound=bound(2 * m * C * 4, 10 * len(f.biquads) * m * C))]
+    report(rows[-1])
+    del y1
+
+    p, flen = 16, 400
+    nfr = n // flen
+    frames = x[: nfr * flen, 0].reshape(nfr, flen).T
+    R = torch.stack([(frames[: flen - lag] * frames[lag:]).sum(0) / flen
+                     for lag in range(p + 1)])
+    errs = [compare("levinson", g, w, f"{name}, path B shapes")
+            for name, g, w in zip(("a", "err", "refl"),
+                                  levinson.levinson(R, p),
+                                  levinson.levinson_reference(R, p))]
+    idx = torch.arange(p, device=dev)
+    toe = (idx[:, None] - idx[None, :]).abs()
+
+    def library():
+        # the (nfr, p, p) Toeplitz normal equations, solved batched
+        # (gives a only)
+        return torch.linalg.solve(R[:p].T[:, toe], -R[1:].T)
+    rows.append(dict(
+        name="levinson", route="cuda", source="dsptpu_torch/csrc/levinson.cu",
+        replaces="dsptpu/kernels/levinson.py:75", max_abs_err=max(errs),
+        ms=time_ms(lambda: levinson.levinson(R, p)),
+        plain_ms=time_ms(lambda: levinson.levinson_reference(R, p)),
+        library_ms=time_ms(library),
+        bound=bound(4 * nfr * ((p + 1) + 2 * p + 1), 2 * p * p * nfr)))
+    report(rows[-1])
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    y, (a, e) = forward(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"path B: launches {counts}")
+    if (counts["biir"] < 2 or counts["biir_reverse"] < 1
+            or counts["levinson"] < 1):
+        raise AssertionError(f"path B missed a kernel: {counts}")
+    if (y.shape != (n, C) or a.shape != (p, nfr) or e.shape != (nfr,)
+            or not all(torch.isfinite(t).all() for t in (y, a, e))):
+        raise AssertionError("path B: shapes or non-finite output")
+    e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
+    log(f"path B end to end: {e2e:.3f} ms (median of 5)")
+    profile_main_path(forward, x, e2e, "path B")
+    y64, (a64, e64) = forward(x.double())
+    compare("biir_reverse", y, y64, "path B filtfilt vs float64")
+    compare("levinson", a, a64, "path B lpc a vs float64")
+    compare("levinson", e, e64, "path B lpc err vs float64")
+    del y, y64
+
+    # the BASELINE's own configuration: one channel, C = 1 the carry
+    # pass's worst case
+    x1 = x[:, :1].contiguous()
+    kernels.reset_launches()
+    y1 = dsptpu_torch.filtfilt(f, x1)
+    torch.cuda.synchronize()
+    c1 = kernels.launch_counts()
+    if c1["biir"] != 2 or c1["biir_reverse"] != 1:
+        raise AssertionError(f"single-channel filtfilt: launches {c1}")
+    compare("biir_reverse", y1, dsptpu_torch.filtfilt(f, x1.double()),
+            f"single-channel filtfilt ({n} x 1) vs float64")
+    log(f"single-channel filtfilt: "
+        f"{time_ms(lambda: dsptpu_torch.filtfilt(f, x1), reps=5):.3f} ms "
+        "(median of 5)")
+    return counts, rows
 
 
 def main():
@@ -366,10 +597,25 @@ def main():
                 f"vs float64 chain, {int(top.sum())} bins within 40 dB",
                 by_bin=True, tol=1e-4)
 
+    del x, psd, spow, psd64, spow64
+    torch.cuda.empty_cache()
+    counts_a, rows_a = path_a(dev)
+    counts_b, rows_b = path_b(dev)
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    for r in rows_a:
+        r["launches"] = counts_a[r["name"]]
+    for r in rows_b:
+        r["launches"] = counts_b[r["name"]]
+    rows += rows_a + rows_b
+    for r in rows:
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']}: no launch on its path")
+
     out = []
     for r in rows:
         bms, by = r.pop("bound")
-        r.update(launches=counts[r["name"]], bound_ms=bms, bound_by=by)
+        r.update(bound_ms=bms, bound_by=by)
         out.append({key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -3,7 +3,8 @@
 // z_t = A z_{t-1} + c x_t, over a time-major (n, C) float32 signal.
 //
 // Replaces dsptpu/kernels/biir.py:blockss_filt_pallas (Pallas `_kernel`,
-// :60), forward and need_state modes.  With V = 128-sample rows X_b:
+// :60) in all its modes: forward, need_state, reverse and n_eff.  With
+// V = 128-sample rows X_b:
 //     U_b      = K X_b                   (row input -> state increment)
 //     z_b      = AV z_{b-1} + U_b        (AV = A^128; z_{-1} = z0)
 //     Y_b      = F X_b + G z_{b-1}       (F lower-triangular Toeplitz of
@@ -22,6 +23,18 @@
 //                row start plus the state term.
 // All tables are built in float64 on the host and cast to float32.
 //
+// Reverse (the anti-causal pass rev(apply(rev(x))), z0 entering after the
+// last sample; filtfilt's second pass): the kernels run over virtual time
+// t' = 0..n-1 and read and write sample tbase - t' (tbase = n - 1, or
+// n_eff - 1 when only the first n_eff samples are processed).  The rows
+// are then those of dsptpu's reverse pass (aligned to the last processed
+// sample, the ragged part processed last), the scans run right to left in
+// real time, and the carry pass walks the chunk ends from the last to the
+// first.  Reading a row in reverse order with the forward tables is the
+// same product as reading it in order with dsptpu's mirrored tables
+// (F', K's columns and G's rows reversed: _dev_tables(reverse=True)), so
+// no table and no copy of the data is flipped.
+//
 // Bound on an H100: 8 bytes of HBM traffic per sample.  The cascade
 // needs 5 multiply-adds per section per sample; this block form spends
 // ~64 for F (triangular) and 2p for K and G, whose time on the CUDA
@@ -33,6 +46,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// Memory row of virtual sample t: t itself, or tbase - t in reverse.
+__device__ __forceinline__ long long row_of(long long t, long long tbase) {
+    return tbase < 0 ? t : tbase - t;
+}
 constexpr int V = 128;
 constexpr int R = 16;
 
@@ -44,7 +62,8 @@ __device__ __forceinline__ int skew(int row, int cw) {
 template <int P>
 __global__ void __launch_bounds__(kThreads)
 inject_kernel(const float* __restrict__ x, const float* __restrict__ kt,
-              float* __restrict__ U, long long n, int C, int B, int cw) {
+              float* __restrict__ U, long long n, long long tbase, int C,
+              int B, int cw) {
     __shared__ float ks[V * P];
     for (int i = threadIdx.x; i < V * P; i += kThreads) ks[i] = kt[i];
     __syncthreads();
@@ -59,7 +78,7 @@ inject_kernel(const float* __restrict__ x, const float* __restrict__ kt,
     const long long t0 = b * V;
     for (int u = 0; u < V; ++u) {
         const long long t = t0 + u;
-        const float xv = t < n ? x[t * C + c] : 0.f;
+        const float xv = t < n ? x[row_of(t, tbase) * C + c] : 0.f;
 #pragma unroll
         for (int a = 0; a < P; ++a) acc[a] = fmaf(ks[u * P + a], xv, acc[a]);
     }
@@ -147,8 +166,8 @@ template <int P>
 __global__ void __launch_bounds__(kThreads)
 output_kernel(const float* __restrict__ x, const float* __restrict__ h,
               const float* __restrict__ gt, const float* __restrict__ Z,
-              float* __restrict__ y, long long n, int C, int B, int cw,
-              int rb) {
+              float* __restrict__ y, long long n, long long tbase, int C,
+              int B, int cw, int rb) {
     extern __shared__ float smem[];
     const int tt = rb * V;
     float* hs = smem;                      // V
@@ -176,7 +195,8 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
         const int r = e / cw, l = e & (cw - 1);
         const long long t = t0 + r;
         const int c = cbase + l;
-        xs[skew(r, cw) * cw + l] = (t < n && c < C) ? x[t * C + c] : 0.f;
+        xs[skew(r, cw) * cw + l] =
+            (t < n && c < C) ? x[row_of(t, tbase) * C + c] : 0.f;
     }
     __syncthreads();
 
@@ -217,7 +237,7 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
 #pragma unroll
             for (int j = 0; j < R; ++j) {
                 const long long t = t0 + lt0 + j;
-                if (t < n) y[t * C + c] = acc[j];
+                if (t < n) y[row_of(t, tbase) * C + c] = acc[j];
             }
         }
     }
@@ -226,8 +246,8 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
 template <int P>
 int run(const float* x, const float* h, const float* kt, const float* gt,
         const float* av, const float* avl, const float* z0, float* y,
-        float* U, float* E, float* zin, float* zrow, long long n, int C,
-        int L, int brow, cudaStream_t st) {
+        float* U, float* E, float* zin, float* zrow, long long n,
+        long long tbase, int C, int L, int brow, cudaStream_t st) {
     const int B = (int)((n + V - 1) / V);
     const int nchunks = (B + L - 1) / L;
     int cw = 1;
@@ -235,8 +255,8 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
     const int cgroups = (C + cw - 1) / cw;
     const int rows_per_block = kThreads / cw;
     inject_kernel<P><<<dim3((B + rows_per_block - 1) / rows_per_block,
-                            cgroups), kThreads, 0, st>>>(x, kt, U, n, C, B,
-                                                          cw);
+                            cgroups), kThreads, 0, st>>>(x, kt, U, n, tbase,
+                                                          C, B, cw);
     const long long items = (long long)nchunks * C;
     const unsigned sblocks = (unsigned)((items + kThreads - 1) / kThreads);
     scan_kernel<P><<<sblocks, kThreads, 0, st>>>(U, av, nullptr, E, nullptr,
@@ -256,7 +276,7 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
         (int)smem);
     if (err != cudaSuccess) return err;
     output_kernel<P><<<dim3((B + rb - 1) / rb, cgroups), kThreads, smem,
-                       st>>>(x, h, gt, U, y, n, C, B, cw, rb);
+                       st>>>(x, h, gt, U, y, n, tbase, C, B, cw, rb);
     return cudaGetLastError();
 }
 
@@ -268,29 +288,32 @@ const char* dsptpu_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, y: (n, C); h: (V,); kt, gt: (V, P); av, avl: (P, P); z0: (P, C);
-// scratch U: (B, P, C); E, zin: (nchunks, P, C); zrow: (P, C) or null
-// (with brow = -1).  P is 8, 16 or 32 (tables zero-padded).
+// x, y: (n, C) forward (tbase = -1); in reverse the pass covers the
+// samples tbase, tbase - 1, ..., tbase - n + 1 of x and y.  h: (V,);
+// kt, gt: (V, P); av, avl: (P, P); z0: (P, C); scratch U: (B, P, C);
+// E, zin: (nchunks, P, C); zrow: (P, C) or null (with brow = -1).  P is
+// 8, 16 or 32 (tables zero-padded).
 int dsptpu_biir(const void* x, const void* h, const void* kt, const void* gt,
                 const void* av, const void* avl, const void* z0, void* y,
-                void* U, void* E, void* zin, void* zrow, long long n, int C,
-                int P, int L, int brow, void* stream) {
+                void* U, void* E, void* zin, void* zrow, long long n,
+                long long tbase, int C, int P, int L, int brow,
+                void* stream) {
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto m = [](void* p) { return static_cast<float*>(p); };
     auto st = static_cast<cudaStream_t>(stream);
     switch (P) {
         case 8:
             return run<8>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                          m(y), m(U), m(E), m(zin), m(zrow), n, C, L, brow,
-                          st);
+                          m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
+                          brow, st);
         case 16:
             return run<16>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                           m(y), m(U), m(E), m(zin), m(zrow), n, C, L, brow,
-                           st);
+                           m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
+                           brow, st);
         case 32:
             return run<32>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                           m(y), m(U), m(E), m(zin), m(zrow), n, C, L, brow,
-                           st);
+                           m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
+                           brow, st);
         default:
             return cudaErrorInvalidValue;
     }

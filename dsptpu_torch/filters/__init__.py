@@ -6,4 +6,5 @@ from .design import (Butterworth, Chebyshev1, Chebyshev2, Elliptic,
                      Lowpass, Highpass, Bandpass, Bandstop, ComplexBandpass,
                      analogfilter, digitalfilter, bilinear, transform_prototype,
                      iirnotch, kaiserord, FIRWindow, resample_filter)
-from .filt import filt, sosfilt, sos_arrays
+from .filt import (filt, sosfilt, sos_arrays, DF2TFilter, filtfilt, fftfilt,
+                   tdfilt, filt_stepstate, filt_stepstate_sos)

@@ -1,6 +1,6 @@
-"""IIR core of dsptpu/filters/filt.py on torch tensors: the block
-state-space form of an LTI filter, SOS cascades and the `filt`
-dispatcher.
+"""dsptpu/filters/filt.py on torch tensors: the block state-space form
+of an LTI filter, SOS cascades, the `filt` dispatcher, the streaming
+DF2TFilter, zero-phase filtfilt, tdfilt and fftfilt.
 
 The recurrence z_t = A z_{t-1} + c x_t, y_t = d x_t + w'z_{t-1} runs as
 a blocked parallel pass: samples are grouped into rows of V = 128; per
@@ -14,8 +14,14 @@ On a float32 signal with n >= 512 and p <= 32 the pass is K2, the
 hand-written kernel of kernels/biir.py; otherwise it runs as torch
 matrix products plus the boundary recurrence of `_affine_rec`.
 
-DF2TFilter, filtfilt, fftfilt and tdfilt are not ported yet (ROADMAP
-Queue 1 items 7-8).
+filtfilt on float32 input long enough for K2 (n >= 4*128 + pad) takes
+the kernel route of dsptpu's _filtfilt_pallas_v2: the front extension
+folds into the forward pass's entering state, the back extension is
+appended to the forward pass, and the reverse pass (K2 reverse with
+n_eff) starts at the aligned boundary m = 128*floor(n/128), its
+entering state and the outputs over [m, n) in closed form from small
+host tables (_ff_edge_tables). The route runs on CPU tensors too, with
+K2's plain version. fftfilt is overlap-save (K4 where its gate holds).
 """
 
 import numpy as np
@@ -23,12 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import dspbase
-from ..ops.dspbase import _flatten_channels, _float_type
+from ..ops.dspbase import _as_1d, _flatten_channels, _float_type
 from ..utils.device import as_tensor
 from .coefficients import (PolynomialRatio, Biquad, SecondOrderSections,
                            ZeroPoleGain, as_sos, coefb, coefa)
 
-__all__ = ["filt", "sosfilt", "sos_arrays"]
+__all__ = ["filt", "sosfilt", "sos_arrays", "DF2TFilter", "filtfilt",
+           "fftfilt", "tdfilt", "filt_stepstate", "filt_stepstate_sos"]
 
 
 # ---------------------------------------------------------------------------
@@ -178,19 +185,29 @@ def _kernel_iir_ok(ss, n, dtype):
     return biir_supported(ss, dtype) and n >= 4 * ss.V
 
 
-def _blockss_apply(ss, x, z0, need_state=True):
+def _blockss_apply(ss, x, z0, need_state=True, reverse=False):
     """Apply the block state-space system over x (n, C) with initial
     state z0 (p, C); returns (y (n, C), z_final (p, C) or None).
 
     Through K2 (kernels/biir.py) where its gate holds; else three
     matrix products per row batch (F, K, G) plus the boundary-state
-    recurrence over n/V row states (_affine_rec)."""
+    recurrence over n/V row states (_affine_rec).
+
+    reverse=True: the anti-causal pass rev(apply(rev(x))) with z0 the
+    state entering from the right; z_final is then the state entering
+    sample 0. K2 takes it without a flip of the data; the torch route
+    flips."""
     dtype = x.dtype
     n, C = x.shape
-    if not (need_state and n < ss.V) and _kernel_iir_ok(ss, n, dtype):
+    if (not (need_state and (reverse or n < ss.V))
+            and _kernel_iir_ok(ss, n, dtype)):
         from ..kernels.biir import blockss_filt
-        res = blockss_filt(ss, x, z0, need_state=need_state)
+        res = blockss_filt(ss, x, z0, need_state=need_state,
+                           reverse=reverse)
         return res if need_state else (res, None)
+    if reverse:
+        y, zf = _blockss_apply(ss, x.flip(0), z0, need_state)
+        return y.flip(0), zf
     V, p = ss.V, ss.p
     B = -(-n // V)
     npad = B * V - n
@@ -337,7 +354,10 @@ def filt(f, a=None, x=None, si=None, device=None):
       filt(b, a, x)            — IIR/FIR from coefficient vectors
       filt(b, x)               — FIR taps
       filt(coef_object, x)     — PolynomialRatio/Biquad/SOS/ZPK
+      filt(df2t_filter, x)     — stateful streaming filter
     """
+    if isinstance(f, DF2TFilter):
+        return f(a if x is None else x)
     if isinstance(f, (Biquad, SecondOrderSections)):
         return sosfilt(f, a if x is None else x, si, device)
     if isinstance(f, ZeroPoleGain):
@@ -346,3 +366,315 @@ def filt(f, a=None, x=None, si=None, device=None):
         return dspbase.filt(coefb(f), coefa(f), a if x is None else x,
                             si=si, device=device)
     return dspbase.filt(f, a, x, si=si, device=device)
+
+
+def _host(v):
+    """A coefficient vector as host numpy (tensors are copied back)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+class DF2TFilter:
+    """Stateful direct-form-II-transposed filter: chunked calls continue
+    the filter state, so they equal one call on the concatenated input.
+
+    `coldims` sizes the trailing channel dims of the inputs this filter
+    will see. The state lives on the device and in the type of the last
+    input (float64 on the CPU before the first call)."""
+
+    def __init__(self, coef, coldims=(), si=None):
+        if isinstance(coef, ZeroPoleGain):
+            coef = as_sos(coef)
+        self.coef = coef
+        if isinstance(coef, PolynomialRatio):
+            b, a = coefb(coef), coefa(coef)
+            sz = max(len(b), len(a)) - 1
+            shape = (sz,) + tuple(coldims)
+        elif isinstance(coef, SecondOrderSections):
+            shape = (2, len(coef.biquads)) + tuple(coldims)
+        elif isinstance(coef, Biquad):
+            shape = (2, 1) + tuple(coldims)
+        else:
+            raise TypeError(f"unsupported coefficient type {type(coef)}")
+        if si is not None:
+            si = si if isinstance(si, torch.Tensor) else torch.as_tensor(
+                np.asarray(si))
+            if isinstance(coef, Biquad) and tuple(si.shape[:1]) == (2,) and (
+                    si.ndim == 1 or si.shape[1] != 1):
+                si = si.reshape((2, 1) + tuple(si.shape[1:]))
+            if tuple(si.shape) != shape:
+                raise ValueError(f"state shape {tuple(si.shape)} does not "
+                                 f"match filter {shape}")
+            self.state = si
+        else:
+            self.state = torch.zeros(shape, dtype=torch.float64)
+
+    def __call__(self, x):
+        x = as_tensor(x)
+        si = self.state.to(x.device)
+        if isinstance(self.coef, PolynomialRatio):
+            y, self.state = dspbase.filt(coefb(self.coef), coefa(self.coef),
+                                         x, si=si)
+            return y
+        y, self.state = sosfilt(self.coef, x, si=si)
+        return y
+
+    filt = __call__
+
+
+# ---------------------------------------------------------------------------
+# filtfilt
+# ---------------------------------------------------------------------------
+
+def filt_stepstate(b, a):
+    """Initial DF2T state making the step response steady-state.
+    Host-side float64 solve; returns (si, b_padded, a_padded) with a[0]
+    normalized to 1."""
+    b = np.atleast_1d(np.asarray(b, dtype=np.float64))
+    a = np.atleast_1d(np.asarray(a, dtype=np.float64))
+    scale = a[0]
+    b = b / scale
+    a = a / scale
+    sz = max(len(b), len(a))
+    if sz == 1:
+        return np.zeros(0), b, a
+    bp = np.zeros(sz)
+    bp[: len(b)] = b
+    ap = np.zeros(sz)
+    ap[: len(a)] = a
+    A = np.hstack([-ap[1:, None], np.vstack([np.eye(sz - 2),
+                                             np.zeros((1, sz - 2))])])
+    B = bp[1:] - ap[1:] * bp[0]
+    si = np.linalg.solve(np.eye(sz - 1) - A, B) * scale
+    return si, bp, ap
+
+
+def filt_stepstate_sos(sos):
+    """Per-biquad steady-state initial conditions, closed form.
+    sos: (nsec, 5). Returns (2, nsec)."""
+    sos = np.asarray(sos, dtype=np.float64).reshape(-1, 5)
+    nsec = sos.shape[0]
+    si = np.zeros((2, nsec))
+    y = 1.0
+    for i in range(nsec):
+        b0, b1, b2, a1, a2 = sos[i]
+        den = 1 + a1 + a2
+        si[0, i] = (-(a1 + a2) * b0 + (b1 + b2)) / den * y
+        si[1, i] = (a1 * b2 - a2 * (b0 + b1) + b2) / den * y
+        y *= (b0 + b1 + b2) / den
+    return si
+
+
+def _extrapolate(x, pad):
+    """Odd-symmetric edge extension, batched over channels.
+    x (n, C) -> (n + 2*pad, C)."""
+    if pad == 0:
+        return x
+    front = 2 * x[0] - x[1: pad + 1].flip(0)
+    back = 2 * x[-1] - x[-pad - 1: -1].flip(0)
+    return torch.cat([front, x, back], 0)
+
+
+def filtfilt(f, a=None, x=None, device=None):
+    """Zero-phase filtering: forward and reverse pass with steady-state
+    initial conditions and odd-symmetric edge extrapolation. Forms:
+    filtfilt(b, x), filtfilt(b, a, x), filtfilt(coef_object, x)."""
+    if isinstance(f, PolynomialRatio):
+        return filtfilt(coefb(f), coefa(f), a if x is None else x, device)
+    if isinstance(f, (Biquad, ZeroPoleGain, SecondOrderSections)):
+        return _filtfilt_sos(as_sos(f), as_tensor(a if x is None else x,
+                                                  device))
+    if x is None:
+        x = as_tensor(a, f.device if isinstance(f, torch.Tensor)
+                      else device)
+        return _filtfilt_fir(_as_1d(f, "b", x.device), x)
+    x = as_tensor(x, device)
+    b = np.atleast_1d(_host(f))
+    a = np.atleast_1d(_host(a))
+    if len(a) == 1:
+        return _filtfilt_fir(torch.as_tensor(b / a[0], device=x.device), x)
+    # real rational TFs go through the SOS cascade: the companion-form
+    # state space of a high-order polynomial is badly conditioned in
+    # float32. The pad stays at the TF form's 3*(max(len)-1).
+    if (len(b) + len(a) <= 66
+            and not (np.iscomplexobj(b) or np.iscomplexobj(a))):
+        # the except guards only the host root-finding; a failure in the
+        # SOS pass itself propagates
+        try:
+            sos_f = as_sos(PolynomialRatio(b, a))
+        except Exception:
+            sos_f = None              # root-finding failed: TF path
+        if sos_f is not None:
+            pad = 3 * (max(len(a), len(b)) - 1)
+            return _filtfilt_sos(sos_f, x, pad=pad)
+    return _iir_filtfilt(b, a, x)
+
+
+def _filtfilt_fir(b, x):
+    """FIR path: one pass with the autocorrelation of b."""
+    nb = b.shape[0]
+    newb = dspbase.conv(b, b.conj().resolve_conj().flip(0))
+    flat, restore = _flatten_channels(x)
+    ext = _extrapolate(flat, nb - 1)
+    y = dspbase.filt(newb, None, ext)
+    return restore(y[2 * nb - 2:])
+
+
+def _filtfilt_passes(ss, zi_np, flat, pad):
+    """Two block state-space passes over the extended signal: forward
+    from zi * ext[0], reverse from zi * y1[-1]. flat (n, C)."""
+    n = flat.shape[0]
+    z = _const(zi_np, flat)
+    ext = _extrapolate(flat, pad)
+    y1, _ = _blockss_apply(ss, ext, z[:, None] * ext[0][None, :],
+                           need_state=False)
+    y2, _ = _blockss_apply(ss, y1, z[:, None] * y1[-1][None, :],
+                           need_state=False, reverse=True)
+    return y2[pad: pad + n] if pad else y2
+
+
+def _iir_filtfilt(b, a, x):
+    """(b, a) that do not go through the SOS cascade: one DF2T state
+    space of the whole polynomial."""
+    pad = min(3 * (max(len(a), len(b)) - 1), x.shape[0] - 1)
+    zi, bp, ap = filt_stepstate(b, a)
+    flat, restore = _flatten_channels(x)
+    n = flat.shape[0]
+    ss = _blockss(*_single_ss(bp, ap))
+    # gate on the input's own type: the kernel route is float32 in,
+    # float32 out
+    if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
+        return restore(_filtfilt_kernel(ss, np.asarray(zi), flat, pad, n))
+    return restore(_filtfilt_passes(ss, zi, flat.to(_float_type(
+        flat.dtype)), pad))
+
+
+def _filtfilt_sos(f, x, pad=None):
+    """SOS cascade (stacked state space, gain included) forward and
+    backward; the kernel route where K2's gate holds."""
+    sos, g = sos_arrays(f)
+    nsec = sos.shape[0]
+    if pad is None:
+        pad = 6 * nsec
+    pad = min(pad, x.shape[0] - 1)
+    flat, restore = _flatten_channels(x)
+    n = flat.shape[0]
+    # stacked-state rows ordered (z1_0, z2_0, z1_1, ...) as in _sosfilt
+    ss = _blockss(*_stack_cascade(np.asarray(sos, np.float64), float(g)))
+    zi_np = np.swapaxes(filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec)
+    if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
+        return restore(_filtfilt_kernel(ss, zi_np, flat, pad, n))
+    return restore(_filtfilt_passes(ss, zi_np, flat.to(_float_type(
+        flat.dtype)), pad))
+
+
+_ff_tab_cache = {}
+
+
+def _ff_edge_tables(ss, pad, q, tl):
+    """Host float64 tables of the kernel route's analytic edges: the
+    front extension folded into the forward pass's entering state
+    (Apad, Kf); the reverse pass's entering state at the aligned
+    boundary from [tail of y1, back-extension outputs] (Aq, Krq); and
+    the closed-form anti-causal outputs over the unaligned tail
+    (Fr, Gr)."""
+    key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(),
+           ss.A.tobytes(), pad, q, tl)
+    hit = _ff_tab_cache.get(key)
+    if hit is not None:
+        return hit
+    p = ss.p
+    A, c, w, d = ss.A, ss.c, ss.G[0], float(ss.F[0, 0])
+    mx = max(pad, q) + 1
+    pw = np.empty((mx, p, p))
+    pw[0] = np.eye(p)
+    for j in range(1, mx):
+        pw[j] = A @ pw[j - 1]
+    Apad = pw[pad]
+    Kf = np.stack([pw[pad - 1 - j] @ c for j in range(pad)], axis=1)
+    Aq = pw[q]
+    Krq = np.stack([pw[j] @ c for j in range(q)], axis=1)
+    # reverse outputs over the unaligned tail [m, n): y2[t] =
+    # d*y1[t] + w' z_before(t), z_before(t) = A^{q-1-i} z0
+    #   + sum_{j>i} A^{j-i-1} c seg[j]  (i = t - m)
+    Gr = (np.stack([w @ pw[q - 1 - i] for i in range(tl)], axis=0)
+          if tl else np.zeros((0, p)))
+    wAc = np.array([w @ (pw[j] @ c) for j in range(q)])
+    Fr = np.zeros((tl, q))
+    for i in range(tl):
+        Fr[i, i] = d
+        if i + 1 < q:
+            Fr[i, i + 1:] = wAc[: q - i - 1]
+    if len(_ff_tab_cache) > 64:
+        _ff_tab_cache.clear()
+    hit = _ff_tab_cache[key] = (Apad, Kf, Aq, Krq, Fr, Gr)
+    return hit
+
+
+_ff_dev_cache = {}
+
+
+def _ff_dev_tables(ss, zst_np, pad, q, tl, device):
+    """_ff_edge_tables and the step state as float32 tensors on
+    `device`, uploaded once per (filter, geometry, device)."""
+    key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.A.tobytes(),
+           np.asarray(zst_np, np.float64).tobytes(), pad, q, tl,
+           str(device))
+    hit = _ff_dev_cache.get(key)
+    if hit is None:
+        host = _ff_edge_tables(ss, pad, q, tl) + (np.asarray(zst_np),)
+        hit = tuple(torch.as_tensor(np.asarray(t, np.float32), device=device)
+                    for t in host)
+        if len(_ff_dev_cache) > 64:
+            _ff_dev_cache.clear()
+        _ff_dev_cache[key] = hit
+    return hit
+
+
+def _filtfilt_kernel(ss, zst_np, x, pad, n):
+    """filtfilt through K2 (dsptpu's _filtfilt_pallas_v2 arithmetic),
+    x (n, C) float32, n >= 4*128 + pad:
+      forward: the front extension folds into the entering state
+        z_e = A^pad (zi x_front[0]) + Kf x_front; the back extension is
+        appended; one forward pass over n + pad samples;
+      reverse: the state entering the aligned boundary m = 128*floor(n/128)
+        from the last q = n - m + pad forward outputs, Aq z0r + Krq seg;
+        one reverse pass over the first m samples (K2's n_eff mode); the
+        outputs over [m, n) in closed form, Fr seg + Gr z0r."""
+    from ..kernels.biir import blockss_filt
+    V = ss.V
+    m = (n // V) * V
+    q = n - m + pad
+    tl = n - m
+    Apad, Kf, Aq, Krq, Fr, Gr, zst = _ff_dev_tables(ss, zst_np, pad, q, tl,
+                                                     x.device)
+    front = 2 * x[0] - x[1: pad + 1].flip(0)            # (pad, C)
+    z_e = Apad @ (zst[:, None] * front[0][None, :]) + Kf @ front
+    back = 2 * x[-1] - x[n - 1 - pad: n - 1].flip(0)    # (pad, C)
+    y1 = blockss_filt(ss, torch.cat([x, back], 0), z_e)   # (n + pad, C)
+    seg = y1[m: n + pad]                                # (q, C)
+    z0r = zst[:, None] * y1[n + pad - 1][None, :]
+    z_rr = Aq @ z0r + Krq @ seg
+    y2main = blockss_filt(ss, y1, z_rr, reverse=True, n_eff=m)
+    y2tail = Fr @ seg + Gr @ z0r
+    return torch.cat([y2main, y2tail], 0)
+
+
+# ---------------------------------------------------------------------------
+# tdfilt / fftfilt
+# ---------------------------------------------------------------------------
+
+def tdfilt(h, x, device=None):
+    """FIR filtering by the time-domain routes of filt."""
+    x = as_tensor(x, device)
+    return dspbase.filt(_as_1d(h, "h", x.device), None, x)
+
+
+def fftfilt(b, x, nfft=None, device=None):
+    """FIR filtering by overlap-save FFT blocks along axis 0 (K4 where
+    its gate holds); the output has x's length."""
+    x = as_tensor(x, device)
+    b = _as_1d(b, "b", x.device)
+    y = dspbase._conv_os_1d(x, b, nfft=nfft, out_len=x.shape[0])
+    return y[: x.shape[0]]

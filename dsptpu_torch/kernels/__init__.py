@@ -1,16 +1,22 @@
 """Hand-written CUDA kernels (csrc/*.cu), one module each: K1 fir, K2
-biir, K3 stft. Each holds its wrapper, a plain PyTorch version and a
-launch counter."""
+biir, K3 stft, K4 osconv, K5 levinson. Each holds its wrapper, a plain
+PyTorch version and a launch counter."""
 
-from . import biir, fir, stft
+from . import biir, fir, levinson, osconv, stft
 
-KERNELS = {"fir": fir, "biir": biir, "stft": stft}
+KERNELS = {"fir": fir, "biir": biir, "stft": stft, "osconv": osconv,
+           "levinson": levinson}
 
 
 def reset_launches():
     for mod in KERNELS.values():
         mod.launches = 0
+    biir.reverse_launches = 0
 
 
 def launch_counts():
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    """Launches per kernel module since the last reset; "biir_reverse"
+    counts the reverse passes among biir's."""
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    counts["biir_reverse"] = biir.reverse_launches
+    return counts

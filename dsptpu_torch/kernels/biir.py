@@ -2,12 +2,15 @@
 (csrc/biir.cu).
 
 Replaces dsptpu/kernels/biir.py:blockss_filt_pallas (:242; Pallas
-`_kernel` :60, tables `_dev_tables` :194) in its forward and need_state
-modes: one pass of y_t = d x_t + w'z_{t-1}; z_t = A z_{t-1} + c x_t (an
-SOS cascade stacked into one state of dimension p <= 32) over 128-sample
-rows, with the carried state entering through the tables F, K, G and
-AV = A^128 of filters.filt._BlockSS. The reverse and n_eff modes belong
-to filtfilt and are not ported yet.
+`_kernel` :60, tables `_dev_tables` :194) in all its modes: one pass of
+y_t = d x_t + w'z_{t-1}; z_t = A z_{t-1} + c x_t (an SOS cascade stacked
+into one state of dimension p <= 32) over 128-sample rows, with the
+carried state entering through the tables F, K, G and AV = A^128 of
+filters.filt._BlockSS. Forward, with need_state (the state after the
+last sample), reverse (the anti-causal pass rev(apply(rev(x))) with z0
+entering after the last sample) and reverse with n_eff (only the first
+n_eff samples, z0 entering at sample n_eff - 1): filtfilt's two
+passes.
 
 Bound on an H100: 8 bytes per sample of HBM traffic. The cascade
 itself needs 5 multiply-adds per section per sample, far less; the
@@ -18,7 +21,8 @@ grid; the CUDA kernel turns that carry into a chunked scan
 
 `blockss_filt` launches the kernel for a CUDA tensor and runs
 `blockss_reference`, the plain PyTorch version of the same arithmetic,
-for a CPU tensor. `launches` counts kernel launches (one per pass).
+for a CPU tensor. `launches` counts kernel launches (one per pass),
+`reverse_launches` those of reverse passes.
 """
 
 import ctypes
@@ -29,13 +33,14 @@ import torch
 from . import _build
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
-           "launches"]
+           "launches", "reverse_launches"]
 
 launches = 0
+reverse_launches = 0
 
-# dsptpu_biir(x, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, C, P, L,
-#             brow, stream)
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [
+# dsptpu_biir(x, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, tbase,
+#             C, P, L, brow, stream)
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2 + [
     ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 _V = 128
@@ -93,11 +98,29 @@ def _advance_tail(ss, zrow, x, n):
     return pm @ zrow + (x[n - m:].to(dt).T @ Kpt).T
 
 
-def blockss_reference(ss, x, z0, need_state=False):
+def _reverse_span(x, reverse, n_eff):
+    """Number of samples a pass covers (n, or n_eff in reverse)."""
+    n = x.shape[0]
+    if n_eff is None:
+        return n
+    if not reverse or n_eff % _V or not 0 < n_eff <= n:
+        raise ValueError("n_eff: reverse passes only, a positive multiple "
+                         "of 128 that is at most n")
+    return n_eff
+
+
+def blockss_reference(ss, x, z0, need_state=False, reverse=False,
+                      n_eff=None):
     """Plain PyTorch version of the kernel's arithmetic, float32 tables:
     U = X K', the same chunked scan of z_b = AV z_{b-1} + U_b, then
     Y = X F' + Zstart G'. x (n, C), z0 (p, C). Returns y, or (y, z_final)
-    with need_state."""
+    with need_state. reverse: the same pass over the time-reversed first
+    n_eff (default n) samples, its output reversed back: (n_eff, C)."""
+    if reverse:
+        if need_state:
+            raise ValueError("need_state: forward passes only")
+        N = _reverse_span(x, reverse, n_eff)
+        return blockss_reference(ss, x[:N].flip(0), z0).flip(0)
     n, C = x.shape
     p = ss.p
     _, kt, gt, av, avl = _tables(ss, x.device)
@@ -137,22 +160,24 @@ def blockss_reference(ss, x, z0, need_state=False):
 def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     """Apply the block state-space system `ss` (V = 128) over x (n, C)
     float32 with initial state z0 (p, C). Returns y (n, C), or
-    (y, z_final (p, C)) with need_state (n >= 128)."""
-    global launches
-    if reverse or n_eff is not None:
-        raise NotImplementedError(
-            "K2 reverse / n_eff modes are filtfilt's (ROADMAP Queue 1 "
-            "item 8) and are not ported yet")
-    if need_state and x.shape[0] < _V:
-        raise ValueError("need_state: passes with n >= 128 only")
+    (y, z_final (p, C)) with need_state (forward, n >= 128).
+
+    reverse=True runs the anti-causal pass rev(apply(rev(x))) with z0
+    the state entering after the last sample; with n_eff (a multiple of
+    128, at most n) only the first n_eff samples are read, z0 enters at
+    sample n_eff - 1, and y is (n_eff, C)."""
+    global launches, reverse_launches
+    if need_state and (reverse or n_eff is not None or x.shape[0] < _V):
+        raise ValueError("need_state: forward passes with n >= 128 only")
+    N = _reverse_span(x, reverse, n_eff)
     if x.device.type == "cpu":
-        return blockss_reference(ss, x, z0, need_state)
+        return blockss_reference(ss, x, z0, need_state, reverse, n_eff)
     if x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError("biir kernel takes an (n, C) float32 signal")
     if not biir_supported(ss, x.dtype):
         raise ValueError("biir kernel takes V = 128 and p <= 32")
     xc = x.contiguous()
-    n, C = xc.shape
+    n, C = N, xc.shape[1]
     p = ss.p
     P = _padded_p(p)
     L = _CHUNK
@@ -162,7 +187,7 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     z0p[:p] = z0.to(device=dev, dtype=torch.float32)
     B = -(-n // _V)
     nch = -(-B // L)
-    y = torch.empty_like(xc)
+    y = torch.empty((n, C), dtype=torch.float32, device=dev)
     U = torch.empty((B, P, C), dtype=torch.float32, device=dev)
     E = torch.empty((nch, P, C), dtype=torch.float32, device=dev)
     zin = torch.empty((nch, P, C), dtype=torch.float32, device=dev)
@@ -173,10 +198,11 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     err = f(xc.data_ptr(), h.data_ptr(), kt.data_ptr(), gt.data_ptr(),
             av.data_ptr(), avl.data_ptr(), z0p.data_ptr(), y.data_ptr(),
             U.data_ptr(), E.data_ptr(), zin.data_ptr(),
-            zrow.data_ptr() if need_state else None, n, C, P, L, brow,
-            _build.stream_of(xc))
+            zrow.data_ptr() if need_state else None, n,
+            n - 1 if reverse else -1, C, P, L, brow, _build.stream_of(xc))
     _build.check("biir", err, "biir kernel launch")
     launches += 1
+    reverse_launches += bool(reverse)
     if not need_state:
         return y
     return y, _advance_tail(ss, zrow[:p], xc, n)

@@ -25,13 +25,15 @@ import numpy as np
 import torch
 
 from .filters import Butterworth, FIRWindow, Lowpass, as_sos, digitalfilter
-from .filters.filt import sosfilt
+from .filters.filt import fftfilt, filtfilt, sosfilt
 from .ops import windows
 from .ops.dspbase import filt
+from .ops.lpc import lpc
 from .ops.periodograms import power, stft, welch_pgram
 from .utils.device import check_full_f32, resolve_device
 
-__all__ = ["entry", "chain_params"]
+__all__ = ["entry", "chain_params", "fftfilt_entry", "fftfilt_taps",
+           "filtfilt_lpc_entry"]
 
 
 def chain_params(order=8, cutoff=0.2, nfft=1024):
@@ -68,3 +70,55 @@ def entry(device="cuda", n=1_000_000, channels=64, order=8, cutoff=0.2,
     x = torch.as_tensor(rng.standard_normal((n, channels)).astype(np.float32),
                         device=dev)
     return forward, (x,)
+
+
+def _stream(dev, n, channels):
+    """x (n, channels): standard normal float32 from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(rng.standard_normal((n, channels)).astype(
+        np.float32), device=dev)
+
+
+def fftfilt_taps(taps=4096):
+    """Host float32 taps of path A: the Lowpass(0.1) Hamming FIR."""
+    return np.asarray(digitalfilter(Lowpass(0.1), FIRWindow.create(
+        np.asarray(windows.hamming(taps)))), dtype=np.float32)
+
+
+def fftfilt_entry(device="cuda", n=10_000_000, channels=16, taps=4096):
+    """(forward, (x,)): forward(x) = fftfilt(h, x), (n, channels), with
+    h = fftfilt_taps(taps) on `device`."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_full_f32()
+    h = torch.as_tensor(fftfilt_taps(taps), device=dev)
+
+    def forward(x):
+        """x: (n, channels) -> fftfilt(h, x), in x's dtype."""
+        return fftfilt(h, x)
+
+    return forward, (_stream(dev, n, channels),)
+
+
+def filtfilt_lpc_entry(device="cuda", n=1_000_000, channels=64, order=8,
+                       cutoff=0.2, lpc_order=16, flen=400):
+    """(forward, (x,)): forward(x) maps x (n, channels) to
+    (filtfilt(f, x) (n, channels), (a (lpc_order, nfr), err (nfr,))),
+    f the Butterworth(order) lowpass at `cutoff` as sections with its
+    gain, and the LPC of the nfr = n // flen frames of flen samples of
+    channel 0 of x, as columns of an (flen, nfr) matrix."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_full_f32()
+    f = as_sos(digitalfilter(Lowpass(cutoff), Butterworth(order)))
+    nfr = n // flen
+
+    def forward(x):
+        """x: (n, channels) -> (y, (a, err)), in x's dtype."""
+        y = filtfilt(f, x)
+        # one copy of the frames, as bench.py makes them (.T.copy()):
+        # the lag sums then read 4 MB contiguously, not a strided column
+        frames = x[: nfr * flen, 0].reshape(nfr, flen).T.contiguous()
+        return y, lpc(frames, lpc_order, method="levinson")
+
+    return forward, (_stream(dev, n, channels),)

@@ -163,7 +163,18 @@ def test_k2_plain_need_state_matches_pallas_interpret(n, C):
 
 
 def test_k2_reverse_not_ported():
-    _, tss = _pair(4, 0.2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbiir.blockss_filt(tss, torch.zeros(1024, 1), torch.zeros(tss.p, 1),
-                           reverse=True)
+    """K2's reverse mode: its plain version matches dsptpu's Pallas
+    kernel at a ragged n, with and without n_eff."""
+    jss, tss = _pair(4, 0.2)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1100, 2)).astype(np.float32)
+    z0 = rng.standard_normal((tss.p, 2)).astype(np.float32)
+    for n_eff in (None, 1024):
+        want = blockss_filt_pallas(jss, jnp.asarray(x), jnp.asarray(z0),
+                                   TB=4, interpret=True, reverse=True,
+                                   n_eff=n_eff)
+        got = tbiir.blockss_filt(tss, torch.as_tensor(x),
+                                 torch.as_tensor(z0), reverse=True,
+                                 n_eff=n_eff)
+        check(got, want, 1e-4)
+    assert tbiir.launches == 0

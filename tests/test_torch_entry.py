@@ -9,6 +9,7 @@ chain (the IIR stage accumulates f32 error)."""
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import dsptpu
@@ -39,7 +40,7 @@ def test_entry_matches_graft_entry():
     assert psd.dtype == torch.float32 and s.dtype == torch.float32
     check(psd, psd_ref)
     check(s, s_ref)
-    assert kernels.launch_counts() == {"fir": 0, "biir": 0, "stft": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_entry_at_kernel_gates_matches_dsptpu():
@@ -59,7 +60,7 @@ def test_entry_at_kernel_gates_matches_dsptpu():
     psd, s = fwd(xt)
     check(psd, psd_ref)
     check(s, s_ref)
-    assert kernels.launch_counts() == {"fir": 0, "biir": 0, "stft": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_entry_without_cuda_raises():
@@ -76,3 +77,52 @@ def test_numpy_input_goes_to_cuda_by_default():
         dsptpu_torch.filt(np.ones(5), np.zeros(100))
     y = dsptpu_torch.filt(np.ones(5), np.zeros(100), device="cpu")
     assert y.device.type == "cpu"
+
+
+def test_fftfilt_entry_matches_dsptpu():
+    """Path A at 40000 x 3 with the full path's 4096 taps (nfft 16384,
+    K4's gate; its plain version on the CPU). Tolerance 3e-5 (bench.py's
+    overlap-save bound)."""
+    fwd, (xt,) = dsptpu_torch.fftfilt_entry(device="cpu", n=40000,
+                                            channels=3)
+    h = np.asarray(dsptpu.digitalfilter(dsptpu.Lowpass(0.1),
+                                        dsptpu.FIRWindow.create(np.asarray(
+                                            dsptpu.windows.hamming(4096)))),
+                   dtype=np.float32)
+    want = dsptpu.fftfilt(jnp.asarray(h), jnp.asarray(xt.numpy()))
+    kernels.reset_launches()
+    got = fwd(xt)
+    assert got.dtype == torch.float32
+    check(got, want, 3e-5)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_filtfilt_lpc_entry_matches_dsptpu():
+    """Path B at 40000 x 3: filtfilt through the kernel route (K2
+    forward, reverse with n_eff; plain versions on the CPU) and LPC of
+    100 frames of channel 0. Tolerance 1e-4 (bench.py's filtfilt and LPC
+    bound). The reference side runs under jax.jit."""
+    fwd, (xt,) = dsptpu_torch.filtfilt_lpc_entry(device="cpu", n=40000,
+                                                 channels=3)
+    x = xt.numpy()
+    f = dsptpu.filters.as_sos(dsptpu.digitalfilter(dsptpu.Lowpass(0.2),
+                                                   dsptpu.Butterworth(8)))
+    y_ref = jax.jit(lambda v: dsptpu.filtfilt(f, v))(jnp.asarray(x))
+    a_ref, e_ref = jax.jit(lambda v: dsptpu.lpc(v, 16, method="levinson"))(
+        jnp.asarray(x[:, 0].reshape(100, 400).T))
+    kernels.reset_launches()
+    y, (a, e) = fwd(xt)
+    assert a.shape == (16, 100) and e.shape == (100,)
+    check(y, y_ref)
+    check(a, a_ref)
+    check(e, e_ref)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_path_entries_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the entries run on the card")
+    for make in (dsptpu_torch.fftfilt_entry,
+                 dsptpu_torch.filtfilt_lpc_entry):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

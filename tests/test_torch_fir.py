@@ -87,5 +87,12 @@ def test_fir_cpu_tensor_runs_plain_version():
 
 
 def test_long_taps_route_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dsptpu_torch.filt(torch.randn(600), torch.randn(5000))
+    """More than 512 taps: the overlap-save route matches dsptpu's, in
+    float64 and in float32."""
+    rng = np.random.default_rng(11)
+    for dtype in (np.float64, np.float32):
+        x = rng.standard_normal((5000, 2)).astype(dtype)
+        b = rng.standard_normal(600).astype(dtype)
+        want = dsptpu.filt(jnp.asarray(b), jnp.asarray(x))
+        got = dsptpu_torch.filt(torch.as_tensor(b), torch.as_tensor(x))
+        check(got, want, TOL[dtype])
