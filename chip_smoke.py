@@ -17,7 +17,12 @@ to 0 just before it and read just after:
   * path B, filtfilt_lpc_entry(): zero-phase Butterworth(8) filtfilt of
     x (1,000,000 x 64) float32 (K2 forward, then reverse with n_eff) and
     order-16 Levinson LPC of 2500 frames of 400 samples (K5); then the
-    single-channel filtfilt (1,000,000 x 1) of dsptpu's BASELINE.
+    single-channel filtfilt (1,000,000 x 1) of dsptpu's BASELINE;
+  * path C, resample_entry(): streaming polyphase resampling of a
+    10,000,000-sample float32 stream at 147/160 and 3/2 (K6) and of its
+    first 2,500,000 samples at the arbitrary rate 0.9997 (K7), one
+    FIRFilter per rate, reset and filt on each call; then resample()
+    at each rate and the stream in chunks.
 
 Each path's output is compared with a float64 run of the same call on
 the card. The STFT kernel is also held to its plain version bin by bin,
@@ -45,15 +50,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
-       "biir_reverse": 1e-4, "levinson": 1e-4}
+       "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, reps=10, warmup=2):
-    """Median CUDA-event time of fn() over reps runs after warm-up."""
+def time_ms(fn, reps=10, warmup=2, inner=1):
+    """Median CUDA-event time of fn() over reps runs after warm-up. With
+    inner > 1 each run is inner calls back to back, and its time is
+    divided by inner: for a kernel shorter than its wrapper's host work,
+    the card then waits less between launches."""
     import torch
     for _ in range(warmup):
         fn()
@@ -63,10 +71,11 @@ def time_ms(fn, reps=10, warmup=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / inner)
     return statistics.median(ts)
 
 
@@ -229,20 +238,97 @@ def small_cases(dev):
                                   levinson.levinson_reference(R, p)):
                 compare("levinson", g, w, f"{name} p={p} C={C}")
 
+    # K6 and K7, fresh and mid-stream
+    from dsptpu_torch.kernels import arbd, pfb2
+    for rate in ("147/160", "3/2", "1/4", "5", "441/640"):
+        for n in (1061, 40000, 61951):
+            for history in (False, True):
+                a = k6_args(dev, rate, n, history, rng)
+                y, h = pfb2.pfb2(*a[:-1], hist_len=a[-1])
+                yr, hr = pfb2.pfb2_reference(*a[:-1], hist_len=a[-1])
+                compare("pfb2", y, yr, f"{rate} n={n} "
+                        f"{'history' if history else 'fresh'}")
+                if not torch.equal(h, hr):
+                    raise AssertionError(f"pfb2 {rate} n={n}: new history")
+    for rate in (0.9997, 0.99999, 0.999):
+        for mid in (False, True):
+            a = k7_args(dev, rate, 40037, mid, rng)
+            compare("arbd", arbd.arbd(*a), arbd.arbd_reference(*a),
+                    f"rate={rate} n=40037 {'mid-stream' if mid else 'fresh'}")
+
+
+def k6_args(dev, rate, n, history, rng):
+    """One pfb2 call's arguments from a FIRFilter's kernel at `rate`
+    ("L/M") with resample_filter's float32 taps: a fresh stream, or one
+    mid-stream with a random history, entry phase L//2 + 1 and input
+    deficit 3."""
+    import torch
+    from fractions import Fraction
+    import dsptpu_torch
+    rate = Fraction(rate)
+    h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
+    f = dsptpu_torch.FIRFilter(h, rate)
+    k = f.kernel
+    L, M, hl = rate.numerator, rate.denominator, f.history_len
+    hist = None
+    if history:
+        if hasattr(k, "phi_idx"):
+            k.phi_idx = L // 2 + 1
+        k.input_deficit = 3
+        hist = torch.as_tensor(rng.standard_normal(hl).astype(np.float32),
+                               device=dev)
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=dev)
+    pfb = torch.as_tensor(dsptpu_torch.taps2pfb(h, L), device=dev)
+    return (hist, x, pfb, L, M, getattr(k, "phi_idx", 1),
+            k.input_deficit + (hl if history else 0), k.output_length(n), hl)
+
+
+def k7_args(dev, rate, n, mid_stream, rng):
+    """One arbd call's arguments from FIRArbitrary's host plan at `rate`
+    with resample_filter's float32 taps (nphi 32): fresh, or after a
+    first chunk of 30011 samples, with a random history."""
+    import torch
+    import dsptpu_torch
+    h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
+    f = dsptpu_torch.FIRFilter(h, rate)
+    k = f.kernel
+    if mid_stream:
+        _, _, o1 = k.plan(30011)
+        k.commit(30011, o1)
+    head, alpha, out_len = k.plan(n)
+    hl = f.history_len
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+    hist = t(rng.standard_normal(hl) if mid_stream else np.zeros(hl),
+             np.float32)
+    return (hist, t(rng.standard_normal(n), np.float32),
+            t(hl + head[0] - 1, np.int32), t(head[1], np.int32),
+            t(alpha, np.float32), t(k.pfb_t.T, np.float32),
+            t(k.dpfb_t.T, np.float32), out_len)
+
 
 def profile_main_path(forward, x, call_ms, label="main path"):
     """Device time by kernel over one call of a path (torch.profiler),
-    and its share of call_ms, the call's unprofiled time."""
+    and its share of call_ms, the call's unprofiled time. The profiler
+    runs a warm-up call before the recorded one: without it, a record of
+    the first kernel was once missing from a call of path C."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     forward(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        forward(x)
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            forward(x)
+            torch.cuda.synchronize()
+            prof.step()
+    avg = traces[0]
     log(avg.table(sort_by="self_cuda_time_total", row_limit=14,
                   max_name_column_width=40))
     # device-side events only: a torch op's own entry repeats the time
@@ -426,6 +512,214 @@ def path_b(dev):
     return counts, rows
 
 
+def path_c(dev, n=10_000_000, arb_n=2_500_000):
+    """Path C at full width (n, arb_n as resample_entry's defaults): K6 at 147/160 and 3/2 and K7 at 0.9997
+    against their plain versions and their library yardsticks at the
+    path's shapes, each rate's float32 call and resample() against
+    float64 on the card, the stream in chunks, resample_entry()'s
+    forward with its launch counts, its time and a profile."""
+    import torch
+    import dsptpu_torch
+    from fractions import Fraction
+    from dsptpu_torch import kernels
+    from dsptpu_torch.filters.stream_filt import _block_filt_step
+    from dsptpu_torch.kernels import arbd, pfb2
+    from dsptpu_torch.pipeline import RESAMPLE_RATES
+    from dsptpu_torch.utils.device import no_tf32
+
+    forward, (x,) = dsptpu_torch.resample_entry(device="cuda", n=n,
+                                                arb_n=arb_n)
+    xa = x[:arb_n]
+    fs = {r: dsptpu_torch.FIRFilter(np.asarray(
+        dsptpu_torch.resample_filter(r), dtype=np.float32), r)
+        for r in RESAMPLE_RATES}
+    log(f"path C: x ({n},) float32; rates "
+        + ", ".join(str(r) for r in RESAMPLE_RATES)
+        + f"; the arbitrary rate on x[:{arb_n}]")
+    rows = []
+    k6_full = []
+
+    # K6 at each rational rate, fresh stream, as the path calls it
+    for r, name in [(Fraction(147, 160), "pfb2"), (Fraction(3, 2),
+                                                   "pfb2_3_2")]:
+        f = fs[r]
+        k = f.kernel
+        L, M = r.numerator, r.denominator
+        pfb = torch.as_tensor(np.ascontiguousarray(k.pfb_t.T, np.float32),
+                              device=dev)
+        taps = pfb.shape[0]
+        out_len = k.output_length(n)
+        hl = f.history_len
+        args = (None, x, pfb, L, M, 1, 1, out_len)
+        k6_full.append((args, hl))
+        log(f"  {r}: {L} phases x {taps} taps, history {hl}, "
+            f"{out_len} outputs, bank in shared memory "
+            f"{pfb2._launch_geometry(taps, L, M)[1]}")
+        y = pfb2.pfb2(*args, hist_len=hl)[0]
+        err = compare("pfb2", y, pfb2.pfb2_reference(*args),
+                      f"{r} path C shapes")
+        # the library yardstick: the port's non-kernel route on the same
+        # stream, the zero history joined to x and the block matmul
+        # (torch.matmul in full float32)
+        G, s0, B, Mb, W, ol = f._block_args(n)
+        Gd = torch.as_tensor(G, dtype=torch.float32, device=dev)
+        h0 = torch.zeros(hl, device=dev)
+
+        def library():
+            return _block_filt_step(h0, x, Gd, s0, B, Mb, W, ol)[0]
+        compare("pfb2", library(), y, f"{r} block matmul vs kernel")
+        del y
+        rows.append(dict(
+            name=name, route="cuda", source="dsptpu_torch/csrc/pfb2.cu",
+            replaces="dsptpu/kernels/pfb2.py:487", max_abs_err=err,
+            ms=time_ms(lambda: pfb2.pfb2(*args, hist_len=hl), inner=10),
+            plain_ms=time_ms(lambda: pfb2.pfb2_reference(*args), inner=10),
+            library_ms=time_ms(library, inner=10),
+            bound=bound(4 * (n + out_len), 2 * taps * out_len)))
+        report(rows[-1])
+
+    # K7 at 0.9997, fresh stream
+    ra = RESAMPLE_RATES[2]
+    f = fs[ra]
+    k = f.kernel
+    head, alpha, out_len = k.plan(arb_n)
+    hl, W, nphi = f.history_len, k.taps_per_phi, k.nphi
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+    end0 = t(hl + head[0] - 1, np.int32)
+    phi = t(head[1], np.int32)
+    al = t(alpha, np.float32)
+    pfb, dpfb = t(k.pfb_t.T, np.float32), t(k.dpfb_t.T, np.float32)
+    hist = torch.zeros(hl, device=dev)
+    args = (hist, xa, end0, phi, al, pfb, dpfb, out_len)
+    log(f"  {ra}: {nphi} phases x {W} taps, {out_len} outputs; plan "
+        f"accepted {arbd.arbd_accepts(head[0], out_len, hl + arb_n)}")
+    y = arbd.arbd(*args)
+    err = compare("arbd", y, arbd.arbd_reference(*args), "path C shapes")
+
+    def library():
+        # every (position, phase) output of both banks by one float32
+        # convolution (2 nphi output channels), then one gather
+        xcat = torch.cat([hist, xa])
+        both = torch.cat([pfb.T, dpfb.T])[:, None, :]
+        with no_tf32():
+            z = torch.nn.functional.conv1d(xcat[None, None], both)[0]
+        nw = z.shape[1]
+        flat = phi.long() * nw + (end0.long() - (W - 1))
+        z = z.reshape(-1)
+        return z[flat] + al * z[flat + nphi * nw]
+    compare("arbd", library(), y, "all-phase convolution vs kernel")
+    del y
+    rows.append(dict(
+        name="arbd", route="cuda", source="dsptpu_torch/csrc/arbd.cu",
+        replaces="dsptpu/kernels/arbd.py:359", max_abs_err=err,
+        ms=time_ms(lambda: arbd.arbd(*args), inner=10),
+        plain_ms=time_ms(lambda: arbd.arbd_reference(*args), inner=10),
+        library_ms=time_ms(library, inner=10),
+        bound=bound(4 * (hl + arb_n + out_len), (4 * W + 2) * out_len)))
+    report(rows[-1])
+    alone = [time_ms(lambda: pfb2.pfb2(*a, hist_len=h)) for a, h in k6_full]
+    alone.append(time_ms(lambda: arbd.arbd(*args)))
+    log("  one call per timed run (the rows above: 10 back to back): "
+        + ", ".join(f"{r['name']} {t:.4f} ms" for r, t in zip(rows, alone)))
+
+    # each rate's float32 filter and resample() against float64; the
+    # float64 calls take the non-kernel routes
+    for r, xs in zip(RESAMPLE_RATES, (x, x, xa)):
+        f = fs[r]
+        name = "arbd" if isinstance(r, float) else "pfb2"
+        kernels.reset_launches()
+        y = f.reset().filt(xs)
+        if kernels.launch_counts()[name] != 1:
+            raise AssertionError(f"{r}: filt launched "
+                                 f"{kernels.launch_counts()}")
+        compare(name, y, f.reset().filt(xs.double()),
+                f"{r} FIRFilter vs float64")
+        kernels.reset_launches()
+        y = dsptpu_torch.resample(xs, r)
+        if kernels.launch_counts()[name] != 1:
+            raise AssertionError(f"{r}: resample launched "
+                                 f"{kernels.launch_counts()}")
+        compare(name, y, dsptpu_torch.resample(xs.double(), r),
+                f"{r} resample vs float64")
+        del y
+
+    # the stream in chunks through one FIRFilter, against one-shot
+    for r in RESAMPLE_RATES[:2]:
+        f = fs[r]
+        one = f.reset().filt(x)
+        f.reset()
+        kernels.reset_launches()
+        # at n = 10,000,000: cuts at 2,500,000, 5,000,037 and 7,777,777
+        parts = [f.filt(c) for c in torch.tensor_split(
+            x, [n // 4, n // 2 + 37, n * 7_777_777 // 10_000_000])]
+        if kernels.launch_counts()["pfb2"] != 4:
+            raise AssertionError(f"{r} chunks: launches "
+                                 f"{kernels.launch_counts()}")
+        compare("pfb2", torch.cat(parts), one,
+                f"{r} in 4 chunks vs one-shot")
+        del one, parts
+    f = fs[ra]
+    k = f.kernel
+    f.reset()
+    got, want = [], []
+    kernels.reset_launches()
+    # at arb_n = 2,500,000: cuts at 800,000 and 1,650,001
+    for c in torch.tensor_split(xa, [arb_n * 8 // 25, arb_n * 33 // 50 + 1]):
+        hist = torch.zeros(hl, device=dev) if f.history is None \
+            else f.history
+        head, alpha, o = k.plan(c.shape[0])
+        cargs = (hist, c, t(hl + head[0] - 1, np.int32),
+                 t(head[1], np.int32), t(alpha, np.float32), pfb, dpfb, o)
+        got.append(f.filt(c))
+        want.append(arbd.arbd_reference(*cargs))
+    if kernels.launch_counts()["arbd"] != 3:
+        raise AssertionError(f"{ra} chunks: launches "
+                             f"{kernels.launch_counts()}")
+    got = torch.cat(got)
+    compare("arbd", got, torch.cat(want),
+            f"{ra} in 3 chunks vs plain on the same chunks")
+    one = f.reset().filt(xa)
+    log(f"  {ra} in 3 chunks equals one-shot bit for bit: "
+        f"{bool(torch.equal(got, one))}")
+    compare("arbd", got, one, f"{ra} in 3 chunks vs one-shot")
+    del got, want, one
+
+    # the path through its entry point
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys = forward(x)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    log(f"path C: launches {counts}, first call {first_ms:.1f} ms")
+    if (counts["pfb2"], counts["arbd"], counts["fir"],
+            counts["osconv"]) != (2, 1, 0, 0):
+        raise AssertionError(f"path C launches: {counts}")
+    shapes = tuple(tuple(y.shape) for y in ys)
+    want_shapes = ((fs[RESAMPLE_RATES[0]].reset().output_length(n),),
+                   (fs[RESAMPLE_RATES[1]].reset().output_length(n),),
+                   (fs[ra].reset().output_length(arb_n),))
+    if shapes != want_shapes or not all(torch.isfinite(y).all()
+                                        for y in ys):
+        raise AssertionError(f"path C: shapes {shapes} (want "
+                             f"{want_shapes}) or non-finite output")
+    del ys
+    e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
+    log(f"path C end to end: {e2e:.3f} ms (median of 5)")
+    for r, xs in zip(RESAMPLE_RATES, (x, x, xa)):
+        f = fs[r]
+        log(f"  {r}: reset + filt "
+            f"{time_ms(lambda: f.reset().filt(xs), reps=5):.3f} ms "
+            "(median of 5)")
+    profile_main_path(forward, x, e2e, "path C")
+    rows[0]["launches"] = rows[1]["launches"] = counts["pfb2"]
+    rows[2]["launches"] = counts["arbd"]
+    return counts, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -601,13 +895,14 @@ def main():
     torch.cuda.empty_cache()
     counts_a, rows_a = path_a(dev)
     counts_b, rows_b = path_b(dev)
+    _, rows_c = path_c(dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
     for r in rows_a:
         r["launches"] = counts_a[r["name"]]
     for r in rows_b:
         r["launches"] = counts_b[r["name"]]
-    rows += rows_a + rows_b
+    rows += rows_a + rows_b + rows_c
     for r in rows:
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")

@@ -10,7 +10,9 @@ chain itself, filt (FIR, K1) -> sosfilt (SOS cascade, K2) ->
 welch_pgram / stft / spectrogram (K3); overlap-save conv / fftfilt /
 long-tap filt (K4) with direct and FFT conv, xcorr and deconv; the
 zero-phase filtfilt (K2 forward and reverse), DF2TFilter and tdfilt;
-and LPC (Burg, Levinson-Durbin: K5). See ROADMAP.md for the rest.
+LPC (Burg, Levinson-Durbin: K5); and streaming polyphase resampling,
+FIRFilter / resample / polyphase_filt (rational K6, arbitrary rate K7).
+See ROADMAP.md for the rest.
 """
 
 from . import filters, kernels, ops, utils
@@ -22,7 +24,9 @@ from .filters import (filt, sosfilt, sos_arrays, ZeroPoleGain,
                       Bandpass, Bandstop, ComplexBandpass, analogfilter,
                       digitalfilter, bilinear, iirnotch, kaiserord,
                       FIRWindow, resample_filter, as_sos, as_zpk,
-                      DF2TFilter, filtfilt, fftfilt, tdfilt)
+                      DF2TFilter, filtfilt, fftfilt, tdfilt, FIRFilter,
+                      taps2pfb, resample, polyphase_filt, outputlength,
+                      inputlength, timedelay)
 from .ops.dspbase import (conv, conv_with_offset, deconv, xcorr,
                           optimal_os_nfft)
 from .ops.lpc import lpc, arburg, levinson, LPCBurg, LPCLevinson
@@ -30,4 +34,5 @@ from .ops.periodograms import (arraysplit, periodogram, welch_pgram,
                                spectrogram, stft, WelchConfig, Periodogram,
                                Spectrogram, power, freq, tfr_time)
 from .utils.fftutil import nextfastfft, nextpow2
-from .pipeline import entry, fftfilt_entry, filtfilt_lpc_entry
+from .pipeline import (entry, fftfilt_entry, filtfilt_lpc_entry,
+                       resample_entry)

@@ -9,10 +9,11 @@ Arrays keep their dtype; tensors go to `device` (default "cuda").
 import numpy as np
 
 from .filters.coefficients import Biquad, SecondOrderSections, ZeroPoleGain
+from .filters.stream_filt import FIRFilter
 from .utils.device import as_tensor
 
 __all__ = ["taps_from_numpy", "sos_from_numpy", "zpk_from_numpy",
-           "state_from_numpy", "window_from_numpy"]
+           "state_from_numpy", "window_from_numpy", "firfilter_from_numpy"]
 
 
 def taps_from_numpy(b, device=None):
@@ -41,3 +42,26 @@ def state_from_numpy(si, device=None):
 
 def window_from_numpy(w, device=None):
     return as_tensor(np.asarray(w).reshape(-1), device)
+
+
+_STREAM_STATE = ("phi_idx", "input_deficit", "phi_accumulator", "_acc_base",
+                 "_deficit_base", "_j_total", "_consumed_total")
+
+
+def firfilter_from_numpy(h, rate, nphi=32, state=None, device=None):
+    """The port's FIRFilter(h, rate, nphi), continuing a stream: `state`
+    is a dict of plain values read off a dsptpu FIRFilter mid-stream,
+    `history` (numpy, or None for a fresh stream) and the kernel's
+    counters phi_idx, input_deficit, phi_accumulator and the anchor
+    counters _acc_base, _deficit_base, _j_total and _consumed_total
+    (each where the filter's kind has it). The history goes to
+    `device`."""
+    f = FIRFilter(np.asarray(h), rate, nphi)
+    if state:
+        k = f.kernel
+        for name in _STREAM_STATE:
+            if name in state and hasattr(k, name):
+                setattr(k, name, type(getattr(k, name))(state[name]))
+        if state.get("history") is not None:
+            f.history = as_tensor(np.array(state["history"]), device)
+    return f

@@ -8,3 +8,5 @@ from .design import (Butterworth, Chebyshev1, Chebyshev2, Elliptic,
                      iirnotch, kaiserord, FIRWindow, resample_filter)
 from .filt import (filt, sosfilt, sos_arrays, DF2TFilter, filtfilt, fftfilt,
                    tdfilt, filt_stepstate, filt_stepstate_sos)
+from .stream_filt import (FIRFilter, taps2pfb, outputlength, inputlength,
+                          resample, polyphase_filt, timedelay)

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels (csrc/*.cu), one module each: K1 fir, K2
-biir, K3 stft, K4 osconv, K5 levinson. Each holds its wrapper, a plain
-PyTorch version and a launch counter."""
+biir, K3 stft, K4 osconv, K5 levinson, K6 pfb2, K7 arbd. Each holds its
+wrapper, a plain PyTorch version and a launch counter."""
 
-from . import biir, fir, levinson, osconv, stft
+from . import arbd, biir, fir, levinson, osconv, pfb2, stft
 
 KERNELS = {"fir": fir, "biir": biir, "stft": stft, "osconv": osconv,
-           "levinson": levinson}
+           "levinson": levinson, "pfb2": pfb2, "arbd": arbd}
 
 
 def reset_launches():

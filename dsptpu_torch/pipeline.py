@@ -21,19 +21,23 @@ host, and a device copy would have to be read back, which waits for the
 stream.
 """
 
+from fractions import Fraction
+
 import numpy as np
 import torch
 
-from .filters import Butterworth, FIRWindow, Lowpass, as_sos, digitalfilter
+from .filters import (Butterworth, FIRWindow, Lowpass, as_sos, digitalfilter,
+                      resample_filter)
 from .filters.filt import fftfilt, filtfilt, sosfilt
 from .ops import windows
 from .ops.dspbase import filt
 from .ops.lpc import lpc
+from .filters.stream_filt import FIRFilter
 from .ops.periodograms import power, stft, welch_pgram
 from .utils.device import check_full_f32, resolve_device
 
 __all__ = ["entry", "chain_params", "fftfilt_entry", "fftfilt_taps",
-           "filtfilt_lpc_entry"]
+           "filtfilt_lpc_entry", "resample_entry", "RESAMPLE_RATES"]
 
 
 def chain_params(order=8, cutoff=0.2, nfft=1024):
@@ -122,3 +126,37 @@ def filtfilt_lpc_entry(device="cuda", n=1_000_000, channels=64, order=8,
         return y, lpc(frames, lpc_order, method="levinson")
 
     return forward, (_stream(dev, n, channels),)
+
+
+# path C's rates: 44.1 kHz -> 48 kHz, 3/2 and a clock-drift correction
+RESAMPLE_RATES = (Fraction(147, 160), Fraction(3, 2), 0.9997)
+
+
+def resample_entry(device="cuda", n=10_000_000, arb_n=2_500_000):
+    """(forward, (x,)): forward(x) maps the 1-D stream x (n,) to
+    (y_147_160, y_3_2, y_arb), x resampled by the streaming polyphase
+    FIRFilter at each rate of RESAMPLE_RATES with the float32 taps of
+    resample_filter(rate); the arbitrary rate 0.9997 (32-phase dual PFB)
+    takes x[:arb_n]. As bench.py's config 4 does, forward holds one
+    FIRFilter per rate and calls reset() then filt() on each call, so
+    host plans are cached across calls. x is standard normal float32
+    from numpy seed 0, on `device` (CUDA unless the caller asks for the
+    CPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_full_f32()
+    fs = [FIRFilter(np.asarray(resample_filter(r), dtype=np.float32), r)
+          for r in RESAMPLE_RATES]
+
+    def forward(x):
+        """x: (n,) -> one output per rate, in x's dtype."""
+        out = []
+        for f, xs in zip(fs, (x, x, x[:arb_n])):
+            f.reset()
+            out.append(f.filt(xs))
+        return tuple(out)
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=dev)
+    return forward, (x,)

@@ -8,7 +8,8 @@ no JAX, so on a GPU machine without it they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: max|d| <= 3e-5 max|ref| for FIR, STFT and overlap-save,
+Tolerances: max|d| <= 3e-5 max|ref| for FIR, STFT, overlap-save and
+resampling (K6, K7 and the resampling filters against float64),
 <= 1e-4 for the IIR pass (both directions), Levinson, filtfilt and the
 whole float32 chain against its float64 run."""
 
@@ -19,7 +20,8 @@ import torch
 import dsptpu_torch
 from dsptpu_torch import kernels
 from dsptpu_torch.filters.filt import _blockss, _stack_cascade
-from dsptpu_torch.kernels import biir, fir, levinson, osconv, stft
+from dsptpu_torch.kernels import (arbd, biir, fir, levinson, osconv, pfb2,
+                                  stft)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +97,7 @@ def test_entry_runs_every_kernel(dev):
     psd, s = fwd(x)
     assert kernels.launch_counts() == {"fir": 1, "biir": 1, "stft": 2,
                                        "osconv": 0, "levinson": 0,
+                                       "pfb2": 0, "arbd": 0,
                                        "biir_reverse": 0}
     psd64, s64 = fwd(x.double())
     check(psd, psd64, 1e-4)
@@ -204,3 +207,138 @@ def test_paths_run_their_kernels(dev):
     y64, (a64, e64) = fwd(x.double())
     for g, w in [(y, y64), (a, a64), (e, e64)]:
         check(g, w, 1e-4)
+
+
+def k6_args(dev, rate, n, history, seed=0):
+    """One pfb2 call's arguments from a FIRFilter's kernel: fresh, or
+    mid-stream with a random history, entry phase and deficit."""
+    from fractions import Fraction
+    rate = Fraction(rate)
+    h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
+    f = dsptpu_torch.FIRFilter(h, rate)
+    k = f.kernel
+    L, M, hl = rate.numerator, rate.denominator, f.history_len
+    hist = None
+    if history:
+        if hasattr(k, "phi_idx"):
+            k.phi_idx = L // 2 + 1
+        k.input_deficit = 3
+        hist = randn(dev, hl, seed=seed + 1)
+    pfb = torch.as_tensor(dsptpu_torch.taps2pfb(h, L), device=dev)
+    return (hist, randn(dev, n, seed=seed), pfb, L, M,
+            getattr(k, "phi_idx", 1),
+            k.input_deficit + (hl if history else 0), k.output_length(n), hl)
+
+
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("n", [1061, 61951])
+@pytest.mark.parametrize("rate", ["147/160", "3/2", "1/4", "5", "441/640"])
+def test_pfb2_kernel_matches_plain(dev, rate, n, history):
+    """441/640's 441 x 58 bank (102 KB) is read from global memory; the
+    others are staged in shared memory."""
+    args = k6_args(dev, rate, n, history)
+    y, h = launched_once(pfb2, lambda: pfb2.pfb2(*args[:-1],
+                                                 hist_len=args[-1]))
+    yr, hr = pfb2.pfb2_reference(*args[:-1], hist_len=args[-1])
+    check(y, yr, 3e-5)
+    assert torch.equal(h, hr)
+
+
+def test_pfb2_kernel_bank_in_global_memory(dev, monkeypatch):
+    """147/160 with its bank forced out of shared memory."""
+    args = k6_args(dev, "147/160", 61951, True)
+    monkeypatch.setattr(pfb2, "_SMEM_BANK_MAX", 0)
+    y = launched_once(pfb2, lambda: pfb2.pfb2(*args[:-1]))
+    check(y, pfb2.pfb2_reference(*args[:-1]), 3e-5)
+
+
+def k7_args(dev, rate, n, mid_stream, seed=0):
+    """One arbd call's arguments from FIRArbitrary's host plan, fresh or
+    after a first chunk of 30011 samples (random history)."""
+    h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
+    f = dsptpu_torch.FIRFilter(h, rate)
+    k = f.kernel
+    if mid_stream:
+        _, _, o1 = k.plan(30011)
+        k.commit(30011, o1)
+    head, alpha, out_len = k.plan(n)
+    hl = f.history_len
+    hist = randn(dev, hl, seed=seed + 1) if mid_stream else torch.zeros(
+        hl, device=dev)
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+    return (hist, randn(dev, n, seed=seed),
+            t(hl + head[0] - 1, np.int32), t(head[1], np.int32),
+            t(alpha, np.float32), t(k.pfb_t.T, np.float32),
+            t(k.dpfb_t.T, np.float32), out_len)
+
+
+@pytest.mark.parametrize("mid_stream", [False, True])
+@pytest.mark.parametrize("rate", [0.9997, 0.99999, 0.999])
+def test_arbd_kernel_matches_plain(dev, rate, mid_stream):
+    args = k7_args(dev, rate, 40037, mid_stream)
+    y = launched_once(arbd, lambda: arbd.arbd(*args))
+    check(y, arbd.arbd_reference(*args), 3e-5)
+
+
+def test_resampling_kernels_refuse(dev):
+    hist, x, pfb, L, M, phi0, deficit, out_len, hl = k6_args(
+        dev, "3/2", 5000, True)
+    with pytest.raises(TypeError):
+        pfb2.pfb2(hist, x.double(), pfb, L, M, phi0, deficit, out_len)
+    with pytest.raises(ValueError):
+        pfb2.pfb2(hist, x[:, None].expand(-1, 2), pfb, L, M, phi0,
+                  deficit, out_len)
+    with pytest.raises(ValueError, match="gate"):    # M + taps - 1 > 896
+        pfb2.pfb2(hist, x, pfb, L, 900, phi0, deficit, 10)
+    a = k7_args(dev, 0.9997, 40037, False)
+    with pytest.raises(TypeError):
+        arbd.arbd(a[0].double(), a[1].double(), *a[2:])
+    with pytest.raises(ValueError):
+        arbd.arbd(a[0], a[1][:, None].expand(-1, 2), *a[2:])
+    with pytest.raises(ValueError, match="gate"):    # nphi 64
+        wide = a[5].repeat(1, 2).contiguous()
+        arbd.arbd(*a[:5], wide, wide, a[7])
+
+
+def test_streams_route_through_their_kernels(dev):
+    """A 1-D float32 FIRFilter at 147/160 launches K6 once a chunk; a
+    (n, 4) stream launches nothing (block matmul); rate 1.25 (duplicate
+    positions) launches no K7, rate 0.9997 one; resample launches each
+    kernel once; resample_entry's forward launches pfb2 twice and arbd
+    once. Each agrees with the same call in float64."""
+    from fractions import Fraction
+    r = Fraction(147, 160)
+    h = np.asarray(dsptpu_torch.resample_filter(r), dtype=np.float32)
+    x = randn(dev, 70001)
+    f = dsptpu_torch.FIRFilter(h, r)
+    kernels.reset_launches()
+    y = torch.cat([f.filt(c) for c in (x[:30011], x[30011:])])
+    assert kernels.launch_counts()["pfb2"] == 2
+    check(y, dsptpu_torch.FIRFilter(h, r).filt(x.double()), 3e-5)
+    x4 = randn(dev, 20000, 4)
+    kernels.reset_launches()
+    y4 = dsptpu_torch.FIRFilter(h, r).filt(x4)
+    assert set(kernels.launch_counts().values()) == {0}
+    check(y4, dsptpu_torch.FIRFilter(h, r).filt(x4.double()), 3e-5)
+    for rate, n_arbd in [(1.25, 0), (0.9997, 1)]:
+        ha = np.asarray(dsptpu_torch.resample_filter(rate), np.float32)
+        kernels.reset_launches()
+        ya = dsptpu_torch.FIRFilter(ha, rate).filt(x)
+        assert kernels.launch_counts()["arbd"] == n_arbd
+        check(ya, dsptpu_torch.FIRFilter(ha, rate).filt(x.double()), 3e-5)
+    for rate, name in [(r, "pfb2"), (0.9997, "arbd")]:
+        kernels.reset_launches()
+        yr = dsptpu_torch.resample(x, rate)
+        assert kernels.launch_counts()[name] == 1
+        check(yr, dsptpu_torch.resample(x.double(), rate), 3e-5)
+    fwd, (xe,) = dsptpu_torch.resample_entry(device="cuda", n=100003,
+                                             arb_n=50000)
+    kernels.reset_launches()
+    ys = fwd(xe)
+    counts = kernels.launch_counts()
+    assert (counts["pfb2"], counts["arbd"], counts["fir"],
+            counts["osconv"]) == (2, 1, 0, 0)
+    for y, y64 in zip(ys, fwd(xe.double())):
+        check(y, y64, 3e-5)
