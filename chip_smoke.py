@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels from dsptpu_torch/csrc, holds each one
 against its plain PyTorch version on the card (at small ragged shapes
-and at the shapes of the path that runs it), then drives three paths at
+and at the shapes of the path that runs it), then drives five paths at
 full width through their entry points, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -22,7 +22,14 @@ to 0 just before it and read just after:
     10,000,000-sample float32 stream at 147/160 and 3/2 (K6) and of its
     first 2,500,000 samples at the arbitrary rate 0.9997 (K7), one
     FIRFilter per rate, reset and filt on each call; then resample()
-    at each rate and the stream in chunks.
+    at each rate and the stream in chunks;
+  * path D, multitaper_entry(): the multitaper spectrogram of x
+    (1,000,000 x 64) float32 with 7 DPSS tapers (NW 4), nfft 1024, hop
+    512, through K3's K-window stack in one launch, and the 64 x 64
+    multitaper coherence of its first 16384 samples;
+  * the K8 phase: the three transpose kernels (K8a-c), which no route
+    calls, each called once through its wrapper at full size and held
+    bit for bit to its plain version.
 
 Each path's output is compared with a float64 run of the same call on
 the card. The STFT kernel is also held to its plain version bin by bin,
@@ -50,7 +57,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
-       "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5}
+       "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5,
+       "stft_mt": 3e-5, "coherence": 1e-4}
 
 
 def log(*a):
@@ -130,6 +138,16 @@ def compare(name, got, want, what, by_bin=False, tol=None):
     return err
 
 
+def exact(name, got, want, what):
+    """Raise unless got equals want bit for bit (same shape)."""
+    import torch
+    torch.cuda.synchronize()
+    same = got.shape == want.shape and torch.equal(got, want)
+    log(f"  {name} {what}: {tuple(got.shape)} equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{name} {what}: differs from its reference")
+
+
 def small_cases(dev):
     """Every kernel against its plain version at small ragged shapes."""
     import torch
@@ -192,6 +210,44 @@ def small_cases(dev):
                     stft.stft_pow_reference(x, win, nfft, hop, k, acc, sc),
                     f"{'sum' if acc else 'frames'} n={n} C={C} "
                     f"nfft={nfft} hop={hop} nbins={nbins}", by_bin=True)
+
+    # K3 with a (K, nfft) window stack (multitaper), both modes; N1 = 3
+    # and 16 take all nfft bins (N1 = 16 summed with K > 1: channel
+    # group 4)
+    for K in (1, 2, 7):
+        for N1 in (2, 3, 8, 16):
+            nfft, hop = 128 * N1, 128 * max(1, N1 // 2)
+            n, C = 7 * hop + nfft + 37, 9
+            k = (n - nfft) // hop + 1
+            x = t(rng.standard_normal((n, C)))
+            win = t(rng.uniform(0.1, 1.0, (K, nfft)))
+            nbins = nfft if N1 in (3, 16) else nfft // 2 + 1
+            sc = t(rng.uniform(0.5, 2.0, nbins))
+            for acc in (True, False):
+                compare("stft", stft.stft_pow(x, win, nfft, hop, k, acc, sc),
+                        stft.stft_pow_reference(x, win, nfft, hop, k, acc,
+                                                sc),
+                        f"stack K={K} {'sum' if acc else 'frames'} n={n} "
+                        f"C={C} nfft={nfft} nbins={nbins}", by_bin=True)
+
+    # K8a-c, exact
+    from dsptpu_torch.kernels import transpose as tp
+    for shape in [(1024, 512), (1000, 300), (513, 2048), (3, 70001)]:
+        x = t(rng.standard_normal(shape))
+        exact("transpose2d", tp.transpose2d(x), tp.transpose2d_reference(x),
+              f"{shape}")
+    for M, C, TR, pad_to in [(10_000, 8, 2048, 12_000),
+                             (70_001, 64, 8192, None), (33, 3, 128, 300)]:
+        x = t(rng.standard_normal((M, C)))
+        exact("transpose_tall", tp.transpose_tall(x, TR, pad_to),
+              tp.transpose_tall_reference(x, TR, pad_to),
+              f"M={M} C={C} TR={TR} pad_to={pad_to}")
+    for C, nb, N1, TB, l2 in [(3, 2, 8, 16, 65), (1, 1, 4, 8, 33),
+                              (64, 2, 8, 32, 65), (40, 1, 16, 8, 128)]:
+        x = t(rng.standard_normal((C, nb, N1, TB, 128)))
+        exact("spectro_permute", tp.spectro_permute(x, l2),
+              tp.spectro_permute_reference(x, l2),
+              f"C={C} nb={nb} N1={N1} TB={TB} l2={l2}")
 
     # K4: each nfft with a short filter and the longest its gate takes
     # (advance L >= max(128, 16 N1)); two non-power-of-two sizes run the
@@ -720,6 +776,153 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
     return counts, rows
 
 
+def path_d(dev, n=1_000_000, coh_n=16384):
+    """Path D at full width (n, coh_n as multitaper_entry's defaults):
+    K3's K-window stack against its plain version and the library's
+    rfft at the path's shapes, multitaper_entry()'s forward with its
+    launch counts, its time and a profile, and float32 against float64
+    on the card."""
+    import torch
+    import dsptpu_torch
+    from dsptpu_torch import kernels
+    from dsptpu_torch.kernels import stft
+    from dsptpu_torch.ops.multitaper import MTConfig
+    from dsptpu_torch.pipeline import MT_NFFT, MT_NTAPERS, MT_NW, MT_OVERLAP
+
+    nfft, hop, K = MT_NFFT, MT_NFFT - MT_OVERLAP, MT_NTAPERS
+    forward, (x,) = dsptpu_torch.multitaper_entry(device="cuda", n=n,
+                                                  coh_n=coh_n)
+    n, C = x.shape
+    k = (n - nfft) // hop + 1
+    # the path's taper stack W_m = w_m / sqrt(r_m) and one-sided scale,
+    # as the entry's config uploads them for K3
+    mt = MTConfig.create(nfft, nfft=nfft, nw=MT_NW, ntapers=K)
+    Wd = mt.const("stack", dev, torch.float32)
+    scd = mt.const("stack_scale", dev, torch.float32)
+    nbins = scd.shape[0]
+    log(f"path D: x ({n}, {C}) float32, {K} DPSS tapers (NW {MT_NW}), "
+        f"nfft {nfft}, hop {hop}, {k} frames; coherence of x[:{coh_n}]")
+    got = stft.stft_pow(x, Wd, nfft, hop, k, False, scd)
+    err = compare("stft_mt", got, stft.stft_pow_reference(
+        x, Wd, nfft, hop, k, False, scd), "path D shapes, white x",
+        by_bin=True)
+    fr = x.T.unfold(1, nfft, hop)[:, :k]                # (C, k, nfft)
+
+    def library():
+        # rfft of the K tapered copies of the unfolded frames, |X|^2
+        # summed over the tapers: (C, k, nbins)
+        X = torch.fft.rfft(fr[:, :, None, :] * Wd, dim=-1)
+        return X.abs().square().sum(2) * scd
+    compare("stft_mt", library().permute(2, 1, 0), got,
+            "library rfft vs kernel", by_bin=True)
+    del got
+    # per frame and channel: K real FFTs, windows, |X|^2 and the sum
+    flops = K * (2.5 * nfft * np.log2(nfft) + nfft + 4 * nbins) * k * C
+    row = dict(
+        name="stft_mt", route="cuda", source="dsptpu_torch/csrc/stft.cu",
+        replaces="dsptpu/kernels/stft.py:295", max_abs_err=err,
+        ms=time_ms(lambda: stft.stft_pow(x, Wd, nfft, hop, k, False, scd)),
+        plain_ms=time_ms(lambda: stft.stft_pow_reference(
+            x, Wd, nfft, hop, k, False, scd), reps=5, warmup=1),
+        library_ms=time_ms(library, reps=5, warmup=1),
+        bound=bound(4 * (n * C + K * nfft + nbins * k * C), flops))
+    report(row)
+    del fr
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, coh = forward(x)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    log(f"path D: launches {counts}, first call {first_ms:.1f} ms")
+    if counts["stft"] < 1:
+        raise AssertionError(f"path D missed K3: {counts}")
+    nf = coh_n // 2 + 1
+    if (spec.shape != (nbins, k, C) or coh.shape != (C, C, nf)
+            or not (torch.isfinite(spec).all() and torch.isfinite(coh).all())):
+        raise AssertionError(f"path D: shapes {tuple(spec.shape)} "
+                             f"{tuple(coh.shape)} or non-finite output")
+    e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
+    log(f"path D end to end: {e2e:.3f} ms (median of 5)")
+    profile_main_path(forward, x, e2e, "path D")
+    # against float64 on the card (the float64 spectrogram takes
+    # torch.fft): relative to the largest bin, and per bin over the bins
+    # within 40 dB of it; the coherence lies in [0, 1], so its bound is
+    # absolute
+    spec64, coh64 = forward(x.double())
+    top = per_bin(spec64) >= 1e-4 * spec64.abs().max()
+    compare("stft_mt", spec, spec64, "path D spectrogram vs float64")
+    compare("stft_mt", spec[top], spec64[top], f"path D spectrogram vs "
+            f"float64, {int(top.sum())} bins within 40 dB", by_bin=True)
+    compare("coherence", coh, coh64, "path D coherence vs float64")
+    row["launches"] = counts["stft"]
+    return counts, [row]
+
+
+def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
+            perm=(64, 8, 8, 256, 65), TR=8192):
+    """The K8 phase: the transpose kernels, which no route of the port
+    (or of dsptpu) calls, driven directly at full size as dsptpu's tests
+    drive its own: transpose2d of an M2 matrix, transpose_tall of the
+    main path's stream (n, C) with TR, and spectro_permute of the raw
+    (C, nb, N1, TB, 128) power layout that the main path's spectrogram
+    has on the TPU (perm = (C, nb, N1, TB, l2)). Each kernel equals its
+    plain version bit for bit; its time, the library's and the bound
+    (bytes) follow."""
+    import torch
+    from dsptpu_torch import kernels
+    from dsptpu_torch.kernels import transpose as tp
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((n, C)).astype(np.float32),
+                        device=dev)
+    a = torch.as_tensor(rng.standard_normal(M2).astype(np.float32),
+                        device=dev)
+    Cp, nb, N1, TB, l2 = perm
+    tile = torch.as_tensor(rng.standard_normal(
+        (Cp, nb, N1, TB, 128)).astype(np.float32), device=dev)
+    L = tp.tall_out_len(n, TR)
+    log(f"K8 phase: transpose2d {M2}, transpose_tall ({n}, {C}) TR {TR} "
+        f"-> ({C}, {L}), spectro_permute {tuple(tile.shape)} l2 {l2}")
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    outs = (tp.transpose2d(a), tp.transpose_tall(x, TR),
+            tp.spectro_permute(tile, l2))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"K8 phase: launches {counts}")
+    rows = []
+    for (name, line, kern, plain, lib, nbytes), out in zip([
+            ("transpose2d", 51, lambda: tp.transpose2d(a),
+             lambda: tp.transpose2d_reference(a),
+             lambda: a.T.contiguous(), 2 * a.numel() * 4),
+            ("transpose_tall", 147, lambda: tp.transpose_tall(x, TR),
+             lambda: tp.transpose_tall_reference(x, TR),
+             lambda: torch.nn.functional.pad(x.T, (0, L - n)),
+             4 * (n * C + C * L)),
+            # the function reads the l2 bins it keeps, not the whole tile
+            ("spectro_permute", 193, lambda: tp.spectro_permute(tile, l2),
+             lambda: tp.spectro_permute_reference(tile, l2),
+             lambda: tile[..., :l2].permute(4, 2, 1, 3, 0).contiguous().view(
+                 l2, N1, nb * TB, Cp), 2 * 4 * Cp * nb * N1 * TB * l2)],
+            outs):
+        if counts[name] < 1:
+            raise AssertionError(f"K8 phase: {name} not launched: {counts}")
+        exact(name, out, plain(), "full size vs plain")
+        exact(name, lib(), out, "library vs kernel")
+        rows.append(dict(
+            name=name, route="cuda", source="dsptpu_torch/csrc/transpose.cu",
+            replaces=f"dsptpu/kernels/transpose.py:{line}",
+            launches=counts[name], max_abs_err=0.0, ms=time_ms(kern),
+            plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
+            bound=bound(nbytes, 0)))
+        report(rows[-1])
+    return counts, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -896,13 +1099,17 @@ def main():
     counts_a, rows_a = path_a(dev)
     counts_b, rows_b = path_b(dev)
     _, rows_c = path_c(dev)
+    torch.cuda.empty_cache()
+    _, rows_d = path_d(dev)
+    torch.cuda.empty_cache()
+    _, rows_k8 = path_k8(dev)
     for r in rows:
         r["launches"] = counts[r["name"]]
     for r in rows_a:
         r["launches"] = counts_a[r["name"]]
     for r in rows_b:
         r["launches"] = counts_b[r["name"]]
-    rows += rows_a + rows_b + rows_c
+    rows += rows_a + rows_b + rows_c + rows_d + rows_k8
     for r in rows:
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")

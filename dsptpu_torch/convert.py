@@ -10,10 +10,12 @@ import numpy as np
 
 from .filters.coefficients import Biquad, SecondOrderSections, ZeroPoleGain
 from .filters.stream_filt import FIRFilter
+from .ops.multitaper import MTConfig
 from .utils.device import as_tensor
 
 __all__ = ["taps_from_numpy", "sos_from_numpy", "zpk_from_numpy",
-           "state_from_numpy", "window_from_numpy", "firfilter_from_numpy"]
+           "state_from_numpy", "window_from_numpy", "firfilter_from_numpy",
+           "mtconfig_from_numpy"]
 
 
 def taps_from_numpy(b, device=None):
@@ -65,3 +67,19 @@ def firfilter_from_numpy(h, rate, nphi=32, state=None, device=None):
         if state.get("history") is not None:
             f.history = as_tensor(np.array(state["history"]), device)
     return f
+
+
+def mtconfig_from_numpy(n_samples, fs, nfft, ntapers, onesided, window, r):
+    """The port's MTConfig from a dsptpu MTConfig's plain fields:
+    `window` the (n_samples, ntapers) taper array (`cfg.window_array`)
+    and `r` the per-taper normalization (`cfg.r`), both taken as float64.
+    A config made by dsptpu's dpss_config (eigenvalue filtering or
+    weighting) then runs unchanged through the port."""
+    window = np.array(window, dtype=np.float64)
+    r = np.array(r, dtype=np.float64).reshape(-1)
+    if window.shape != (int(n_samples), int(ntapers)) or r.shape != (
+            int(ntapers),):
+        raise ValueError("window must be (n_samples, ntapers) and r "
+                         "(ntapers,)")
+    return MTConfig(int(n_samples), float(fs), int(nfft), int(ntapers),
+                    bool(onesided), window, r)

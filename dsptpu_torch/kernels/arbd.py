@@ -31,7 +31,7 @@ builds none of its TPU tables.
 
 `arbd` launches the kernel for a CUDA tensor and runs `arbd_reference`,
 the plain PyTorch version (a gather and a dot per tap), for a CPU
-tensor. `launches` counts kernel launches.
+tensor. `launches["arbd"]` counts kernel launches.
 """
 
 import ctypes
@@ -44,7 +44,7 @@ from . import _build
 __all__ = ["arbd", "arbd_reference", "arbd_supported", "arbd_accepts",
            "launches", "SEG"]
 
-launches = 0
+launches = {"arbd": 0}
 
 _TO = 1024                    # outputs per block
 
@@ -130,7 +130,6 @@ def arbd(hist, x, end0, phi, alpha, pfb, dpfb, out_len):
     hist ‖ x (hist None: no history): end0, phi (int32) and alpha
     (float32) per output from the host plan, pfb and dpfb (W, nphi)
     float32; (out_len,) float32."""
-    global launches
     if x.device.type == "cpu":
         return arbd_reference(hist, x, end0, phi, alpha, pfb, dpfb, out_len)
     fl = [x, alpha, pfb, dpfb] + ([] if hist is None else [hist])
@@ -166,5 +165,5 @@ def arbd(hist, x, end0, phi, alpha, pfb, dpfb, out_len):
             pfb.data_ptr(), dpfb.data_ptr(), W, nphi, int(out_len), _TO, cap,
             smem, y.data_ptr(), _build.stream_of(x))
     _build.check("arbd", err, "arbd kernel launch")
-    launches += 1
+    launches["arbd"] += 1
     return y

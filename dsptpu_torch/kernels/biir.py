@@ -21,8 +21,8 @@ grid; the CUDA kernel turns that carry into a chunked scan
 
 `blockss_filt` launches the kernel for a CUDA tensor and runs
 `blockss_reference`, the plain PyTorch version of the same arithmetic,
-for a CPU tensor. `launches` counts kernel launches (one per pass),
-`reverse_launches` those of reverse passes.
+for a CPU tensor. `launches["biir"]` counts kernel launches (one per
+pass), `launches["biir_reverse"]` those of reverse passes.
 """
 
 import ctypes
@@ -33,10 +33,9 @@ import torch
 from . import _build
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
-           "launches", "reverse_launches"]
+           "launches"]
 
-launches = 0
-reverse_launches = 0
+launches = {"biir": 0, "biir_reverse": 0}
 
 # dsptpu_biir(x, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, tbase,
 #             C, P, L, brow, stream)
@@ -166,7 +165,6 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     the state entering after the last sample; with n_eff (a multiple of
     128, at most n) only the first n_eff samples are read, z0 enters at
     sample n_eff - 1, and y is (n_eff, C)."""
-    global launches, reverse_launches
     if need_state and (reverse or n_eff is not None or x.shape[0] < _V):
         raise ValueError("need_state: forward passes with n >= 128 only")
     N = _reverse_span(x, reverse, n_eff)
@@ -201,8 +199,8 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
             zrow.data_ptr() if need_state else None, n,
             n - 1 if reverse else -1, C, P, L, brow, _build.stream_of(xc))
     _build.check("biir", err, "biir kernel launch")
-    launches += 1
-    reverse_launches += bool(reverse)
+    launches["biir"] += 1
+    launches["biir_reverse"] += bool(reverse)
     if not need_state:
         return y
     return y, _advance_tail(ss, zrow[:p], xc, n)

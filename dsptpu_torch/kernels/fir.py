@@ -10,8 +10,8 @@ cores (67 TFLOP/s) outweigh the 8 bytes per sample of HBM traffic
 design note at the top of csrc/fir.cu.
 
 `fir` launches the kernel for a CUDA tensor and runs `fir_reference`,
-the plain PyTorch version, for a CPU tensor. `launches` counts kernel
-launches.
+the plain PyTorch version, for a CPU tensor. `launches["fir"]` counts
+kernel launches.
 """
 
 import ctypes
@@ -22,7 +22,7 @@ from . import _build
 
 __all__ = ["fir", "fir_reference", "fir_supported", "launches"]
 
-launches = 0
+launches = {"fir": 0}
 
 # dsptpu_fir(x, taps, y, n, C, nb, stream)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
@@ -51,7 +51,6 @@ def fir_reference(x, b):
 def fir(x, b):
     """Causal FIR of x (n,) or (n, C) float32 with taps b (nb,) float32,
     zero initial state; output has x's shape."""
-    global launches
     if x.device.type == "cpu":
         return fir_reference(x, b)
     if x.dtype != torch.float32 or b.dtype != torch.float32:
@@ -69,5 +68,5 @@ def fir(x, b):
     err = f(xc.data_ptr(), bc.data_ptr(), y.data_ptr(), n, C, bc.shape[0],
             _build.stream_of(xc))
     _build.check("fir", err, "fir kernel launch")
-    launches += 1
+    launches["fir"] += 1
     return y

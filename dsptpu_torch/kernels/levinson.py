@@ -17,7 +17,7 @@ channels of a warp.
 `levinson` launches the kernel for a CUDA tensor and runs
 `levinson_reference`, the plain PyTorch version (the per-order vector
 recursion of ops/lpc.levinson on float32 tensors), for a CPU tensor.
-`launches` counts kernel launches.
+`launches["levinson"]` counts kernel launches.
 """
 
 import ctypes
@@ -28,7 +28,7 @@ from . import _build
 
 __all__ = ["levinson", "levinson_reference", "lev_supported", "launches"]
 
-launches = 0
+launches = {"levinson": 0}
 
 # dsptpu_levinson(R, a, err, refl, p, C, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
@@ -64,7 +64,6 @@ def levinson_reference(R, p):
 def levinson(R, p):
     """Levinson-Durbin recursion of order p on R (>= p+1, C) float32.
     Returns (a (p, C), err (C,), refl (p, C))."""
-    global launches
     if R.device.type == "cpu":
         return levinson_reference(R[: p + 1], p)
     if R.dtype != torch.float32 or R.ndim != 2:
@@ -81,5 +80,5 @@ def levinson(R, p):
     code = f(Rc.data_ptr(), a.data_ptr(), err.data_ptr(), refl.data_ptr(),
              p, C, _build.stream_of(Rc))
     _build.check("levinson", code, "levinson kernel launch")
-    launches += 1
+    launches["levinson"] += 1
     return a, err, refl

@@ -22,7 +22,7 @@ once on the way out: see the design note at the top of csrc/osconv.cu.
 `osconv_reference`, the plain PyTorch version (the same blocks through
 torch.fft on unfolded frames), for a CPU tensor. `os_fft` is that
 overlap-save for any advance and type; dspbase._conv_os_1d takes it
-where K4's gate fails. `launches` counts kernel launches.
+where K4's gate fails. `launches["osconv"]` counts kernel launches.
 """
 
 import ctypes
@@ -36,7 +36,7 @@ from . import _build
 __all__ = ["osconv", "osconv_reference", "osconv_supported", "os_fft",
            "launches"]
 
-launches = 0
+launches = {"osconv": 0}
 
 # dsptpu_osconv(x, Hp, wn, tw2, y, n, C, nfft, M, L, nout, stream)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
@@ -148,7 +148,6 @@ def osconv(u, v, nfft, out_len=None):
     filter v (nv,) float32 in blocks of nfft points; the first out_len
     (default n + nv - 1) samples, (out_len,) or (out_len, C). Caller
     checks osconv_supported(nfft, len(v), float32)."""
-    global launches
     vec = u.ndim == 1
     u2 = u[:, None] if vec else u
     n, nv = u2.shape[0], v.shape[0]
@@ -175,5 +174,5 @@ def osconv(u, v, nfft, out_len=None):
             y.data_ptr(), n, C, nfft, nfft & -nfft, _advance(nfft, nv),
             nout, _build.stream_of(xc))
     _build.check("osconv", err, "osconv kernel launch")
-    launches += 1
+    launches["osconv"] += 1
     return y[:, 0] if vec else y

@@ -30,7 +30,7 @@ otherwise.
 
 `pfb2` launches the kernel for a CUDA tensor and runs
 `pfb2_reference`, the plain PyTorch version (a gather and a dot per
-tap), for a CPU tensor. `launches` counts kernel launches.
+tap), for a CPU tensor. `launches["pfb2"]` counts kernel launches.
 """
 
 import ctypes
@@ -45,7 +45,7 @@ from . import _build
 __all__ = ["pfb2", "pfb2_reference", "pfb2_supported", "pfb2_default_on",
            "launches"]
 
-launches = 0
+launches = {"pfb2": 0}
 
 _MAX_SMEM = 232448              # dynamic shared memory a block may use
 _SMEM_BANK_MAX = 96 * 1024      # a larger bank is read from global memory
@@ -206,7 +206,6 @@ def pfb2(hist, x, pfb, L, M, phi0, deficit, out_len, hist_len=0):
     also the new history (hist_len,). `phi0` is the 1-based entry phase,
     `deficit` the 1-based input deficit counted from the start of
     xcat."""
-    global launches
     if x.device.type == "cpu":
         return pfb2_reference(hist, x, pfb, L, M, phi0, deficit, out_len,
                               hist_len)
@@ -238,7 +237,7 @@ def pfb2(hist, x, pfb, L, M, phi0, deficit, out_len, hist_len=0):
             int(deficit), int(out_len), to, int(bank_smem), smem,
             y.data_ptr(), _build.stream_of(x))
     _build.check("pfb2", err, "pfb2 kernel launch")
-    launches += 1
+    launches["pfb2"] += 1
     if hist_len:
         return y, _new_history(hist, x, hist_len)
     return y

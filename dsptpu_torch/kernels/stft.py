@@ -11,14 +11,27 @@ writes the scaled bins in order per frame, (nbins, nframes, C), or sums
 them over the frames (Welch), (nbins, C), through per-block partial sums
 and a second pass: no atomics, so results repeat from run to run.
 
-Bound on an H100: HBM bytes in both modes. A real FFT with the window
-and |X|^2 needs ~28 f32 flops per sample per frame at nfft 1024, under
-the time to read the signal once (summed over frames) or to read it and
-write nbins floats per frame and channel (per frame).
+The window may be one (nfft,) window or a stack (K, nfft) (multitaper:
+fold a per-taper weight into its window as w_m / sqrt(r_m)). The
+kernel loads each frame into shared memory once (windowed by a single
+window, raw for a stack), runs the DFT per window and sums |X|^2 over
+the windows, in order, in a per-frame accumulator in shared memory; the
+bin scale is applied once at the store. The windows stay in global
+memory, so K is not bounded by shared memory; the kernel's channel
+group (channels per block) halves from 8 where its buffers would not
+fit in the 227 KB a block may have (nfft 2048, all nfft bins, K > 1,
+summed: 4).
+
+Bound on an H100: HBM bytes in both modes at K = 1. A real FFT with the
+window and |X|^2 needs ~28 f32 flops per sample per frame at nfft 1024,
+under the time to read the signal once (summed over frames) or to read
+it and write nbins floats per frame and channel (per frame); K windows
+need K times the flops, which bound the per-frame mode from K = 3 on.
 
 `stft_pow` launches the kernel for a CUDA tensor and runs
 `stft_pow_reference`, the plain PyTorch version of the same four-step
-arithmetic, for a CPU tensor. `launches` counts kernel launches.
+arithmetic, for a CPU tensor. `launches["stft"]` counts kernel
+launches.
 """
 
 import ctypes
@@ -30,14 +43,13 @@ from . import _build
 
 __all__ = ["stft_pow", "stft_pow_reference", "stft_supported", "launches"]
 
-launches = 0
+launches = {"stft": 0}
 
 # dsptpu_stft_pow(x, win, w1, tw, w128, scale, part, out, n, C, N1, hop,
-#                 nframes, nbins, cg, fpb, accumulate, stream)
+#                 nframes, nbins, fpb, accumulate, K, stream)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
     ctypes.c_int] * 8 + [ctypes.c_void_p]
 
-_CG = 8            # channels per block
 _FPB_SUM = 16      # frames per block when summing (partials per channel)
 _tab_cache = {}
 _host_cache = {}
@@ -84,7 +96,7 @@ def _f32_on(a, device):
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.float32)
     a = np.ascontiguousarray(a, dtype=np.float32)
-    key = (a.tobytes(), str(device))
+    key = (a.shape, a.tobytes(), str(device))
     hit = _host_cache.get(key)
     if hit is None:
         if len(_host_cache) > 64:
@@ -95,8 +107,10 @@ def _f32_on(a, device):
 
 def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
     """Plain PyTorch version: the same four-step DFT with float32
-    tables, as tensor products. x (n, C) float32, win (nfft,), scale
-    (nbins,) on x's device."""
+    tables, as tensor products, one window of the stack at a time (the
+    memory of one window) and |X|^2 summed over the windows in order.
+    x (n, C) float32, win (nfft,) or (K, nfft), scale (nbins,) on x's
+    device."""
     n, C = x.shape
     N1 = nfft // 128
     R = N1 // 2 + 1
@@ -104,8 +118,7 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
     need = (nframes - 1) * hop + nfft
     xp = torch.zeros((max(need, n), C), dtype=x.dtype, device=x.device)
     xp[:n] = x
-    frames = xp.T.unfold(1, nfft, hop)[:, :nframes] * win   # (C, k, nfft)
-    planes = frames.reshape(C, nframes, N1, 128)
+    raw = xp.T.unfold(1, nfft, hop)[:, :nframes]            # (C, k, nfft)
     dev = x.device
     w1, TW, _, idx = _tables(nfft, dev)
     m = (np.arange(R)[:, None] * np.arange(N1)[None, :]) % N1
@@ -114,14 +127,21 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
                 / 128)
     W2re = torch.as_tensor(w2.real.astype(np.float32), device=dev)
     W2im = torch.as_tensor(w2.imag.astype(np.float32), device=dev)
-    bre = torch.einsum("rj,ckjl->ckrl", W1[..., 0], planes)
-    bim = torch.einsum("rj,ckjl->ckrl", W1[..., 1], planes)
-    cre = bre * TW[..., 0] - bim * TW[..., 1]
-    cim = bre * TW[..., 1] + bim * TW[..., 0]
-    xre = cre @ W2re - cim @ W2im
-    xim = cre @ W2im + cim @ W2re
-    pw = (xre * xre + xim * xim).reshape(C, nframes, R * 128)
-    pw = pw[..., torch.as_tensor(idx[:nbins], device=dev)]  # (C, k, nbins)
+    bins = torch.as_tensor(idx[:nbins], device=dev)
+    pw = None
+    for w in win.reshape(-1, nfft):
+        planes = (raw * w).reshape(C, nframes, N1, 128)
+        bre = torch.einsum("rj,ckjl->ckrl", W1[..., 0], planes)
+        bim = torch.einsum("rj,ckjl->ckrl", W1[..., 1], planes)
+        cre = bre * TW[..., 0] - bim * TW[..., 1]
+        cim = bre * TW[..., 1] + bim * TW[..., 0]
+        del planes, bre, bim
+        xre = cre @ W2re - cim @ W2im
+        xim = cre @ W2im + cim @ W2re
+        del cre, cim
+        p = (xre * xre + xim * xim).reshape(C, nframes, R * 128)[..., bins]
+        del xre, xim
+        pw = p if pw is None else pw + p                    # (C, k, nbins)
     if accumulate:
         return (pw.sum(1) * scale).T.contiguous()
     return (pw * scale).permute(2, 1, 0).contiguous()
@@ -129,11 +149,11 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
 
 def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     """Power spectra of frames f < nframes of x (n, C) float32 starting
-    at f*hop, windowed by win (nfft,), scaled per bin by scale (nbins,):
-    (nbins, nframes, C), or (nbins, C) summed over frames when
-    accumulate. win and scale may be numpy arrays (float64 host values
-    are cast to float32)."""
-    global launches
+    at f*hop, windowed by win (nfft,) or by each window of a stack
+    (K, nfft) with |X|^2 summed over the K windows, scaled per bin by
+    scale (nbins,): (nbins, nframes, C), or (nbins, C) summed over
+    frames when accumulate. win and scale may be numpy arrays (float64
+    host values are cast to float32)."""
     win = _f32_on(win, x.device)
     scale = _f32_on(scale, x.device)
     if x.device.type == "cpu":
@@ -142,10 +162,11 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     if x.ndim != 2 or not stft_supported(nfft, hop, x.dtype):
         raise ValueError("stft kernel takes (n, C) float32, nfft and hop "
                          "multiples of 128, 2 <= nfft/128 <= 16")
-    if win.shape != (nfft,) or nframes < 1 or not (
-            scale.ndim == 1 and 1 <= scale.shape[0] <= nfft):
-        raise ValueError("stft kernel takes an (nfft,) window, nframes "
-                         ">= 1 and 1 <= nbins <= nfft scales")
+    K = win.shape[0] if win.ndim == 2 else 1
+    if (win.shape not in ((nfft,), (K, nfft)) or K < 1 or nframes < 1
+            or not (scale.ndim == 1 and 1 <= scale.shape[0] <= nfft)):
+        raise ValueError("stft kernel takes an (nfft,) or (K, nfft) window, "
+                         "nframes >= 1 and 1 <= nbins <= nfft scales")
     xc = x.contiguous()
     n, C = xc.shape
     N1 = nfft // 128
@@ -154,7 +175,6 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     w1, tw, w128, _ = _tables(nfft, dev)
     win = win.contiguous()
     scale = scale.contiguous()
-    cg = min(_CG, C)
     if accumulate:
         fpb = _FPB_SUM
         nblk = -(-nframes // fpb)
@@ -170,8 +190,8 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     err = f(xc.data_ptr(), win.data_ptr(), w1.data_ptr(), tw.data_ptr(),
             w128.data_ptr(), scale.data_ptr(),
             part.data_ptr() if part is not None else None, out.data_ptr(),
-            n, C, N1, hop, nframes, nbins, cg, fpb, int(accumulate),
+            n, C, N1, hop, nframes, nbins, fpb, int(accumulate), K,
             _build.stream_of(xc))
     _build.check("stft", err, "stft kernel launch")
-    launches += 1
+    launches["stft"] += 1
     return out

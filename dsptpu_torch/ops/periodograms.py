@@ -1,6 +1,6 @@
-"""Spectral estimation on torch tensors: periodogram / Welch / STFT /
-spectrogram (port of dsptpu/ops/periodograms.py, 1-D signals with
-trailing channel dims).
+"""Spectral estimation on torch tensors: periodogram (1-D with trailing
+channel dims, and 2-D) / Welch / STFT / spectrogram, fftshift_tfr (port
+of dsptpu/ops/periodograms.py).
 
 Segmentation is one batch of overlapping frames, the window multiply
 broadcasts, and one batched FFT (torch.fft) handles every segment.
@@ -8,7 +8,8 @@ Where dsptpu's kernel gate holds (real float32 signal, nfft and hop
 multiples of 128, 2 <= nfft/128 <= 16, n <= nfft), Welch and the
 PSD-mode STFT instead run through K3 (kernels/stft.py): framing,
 window, DFT and |X|^2 (and the Welch sum) in one kernel.
-The 2-D periodogram and fftshift_tfr are not ported yet.
+The 2-D periodogram's radial sums bin with `index_add_` (atomics on
+CUDA: the sums are not bit-repeatable there, within float rounding).
 """
 
 from dataclasses import dataclass
@@ -24,8 +25,8 @@ from . import windows as _windows
 
 __all__ = [
     "arraysplit", "periodogram", "welch_pgram", "spectrogram", "stft",
-    "WelchConfig", "Periodogram", "Spectrogram", "power", "freq",
-    "tfr_time",
+    "WelchConfig", "Periodogram", "Periodogram2", "Spectrogram", "power",
+    "freq", "tfr_time", "fftshift_tfr",
 ]
 
 
@@ -38,6 +39,14 @@ class Periodogram:
     """PSD result: `power` (nbins, *chans), `freq` (nbins,) numpy axis."""
     power: Any
     freq: Any
+
+
+@dataclass
+class Periodogram2:
+    """2-D PSD result: `power` (n1, n2), `freq1`, `freq2`."""
+    power: Any
+    freq1: Any
+    freq2: Any
 
 
 @dataclass
@@ -54,11 +63,43 @@ def power(p):
 
 
 def freq(p):
+    if isinstance(p, Periodogram2):
+        return (p.freq1, p.freq2)
     return p.freq
 
 
 def tfr_time(p):
     return p.time
+
+
+def fftshift_tfr(p):
+    """fftshift a two-sided TFR's frequency axis (reference
+    periodograms.jl:331-339,777-780); a one-sided one is returned as it
+    is."""
+    def is_twosided(f):
+        return np.any(np.asarray(f) < 0)
+
+    if isinstance(p, Periodogram):
+        if not is_twosided(p.freq):
+            return p
+        return Periodogram(torch.fft.fftshift(p.power, dim=0),
+                           np.fft.fftshift(p.freq))
+    if isinstance(p, Spectrogram):
+        if not is_twosided(p.freq):
+            return p
+        return Spectrogram(torch.fft.fftshift(p.power, dim=0),
+                           np.fft.fftshift(p.freq), p.time)
+    if isinstance(p, Periodogram2):
+        pw = p.power
+        f1, f2 = p.freq1, p.freq2
+        if is_twosided(f1):
+            pw = torch.fft.fftshift(pw, dim=0)
+            f1 = np.fft.fftshift(f1)
+        if is_twosided(f2):
+            pw = torch.fft.fftshift(pw, dim=1)
+            f2 = np.fft.fftshift(f2)
+        return Periodogram2(pw, f1, f2)
+    raise TypeError(f"cannot fftshift {type(p)}")
 
 
 # ---------------------------------------------------------------------------
@@ -187,18 +228,25 @@ def _kernel_seg_pow(s, n, noverlap, nfft, win, wts, accumulate):
 
 
 # ---------------------------------------------------------------------------
-# periodogram (1-D)
+# periodogram (1-D and 2-D)
 # ---------------------------------------------------------------------------
 
 def periodogram(s, onesided=None, nfft=None, fs=1.0, window=None,
-                device=None):
+                radialsum=False, radialavg=False, device=None):
     """Periodogram of a 1-D signal, which may carry two or more trailing
-    channel dims (a matrix is dsptpu's 2-D periodogram)."""
+    channel dims, or of a matrix: the 2-D periodogram, in full
+    (Periodogram2) or as its radial sum or average (Periodogram over
+    wavenumber), as dsptpu's."""
     s = _as_fft_input(s, device)
     if s.ndim == 2:
-        raise NotImplementedError(
-            "a matrix input is a 2-D periodogram, which is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+        if radialsum and radialavg:
+            raise ValueError("radialsum and radialavg are mutually exclusive")
+        ptype = 1 if radialsum else (2 if radialavg else 0)
+        nfft2 = nfft if isinstance(nfft, tuple) else \
+            tuple(nextfastfft(d) for d in s.shape)
+        return _periodogram2(s, nfft2, fs, ptype)
+    if radialsum or radialavg:
+        raise ValueError("radial periodograms require a 2-D input")
     is_real = not s.is_complex()
     if onesided is None:
         onesided = is_real
@@ -218,6 +266,51 @@ def periodogram(s, onesided=None, nfft=None, fs=1.0, window=None,
     f = (np.fft.rfftfreq(nfft, 1 / fs) if onesided
          else np.fft.fftfreq(nfft, 1 / fs))
     return Periodogram(pw, f)
+
+
+def _periodogram2(s, nfft, fs, ptype):
+    """Full 2-D PSD (ptype 0) or radial sum/average (1/2) (reference
+    periodograms.jl:473-509, fft2pow2radial! :183-232)."""
+    n1s, n2s = s.shape
+    if n1s <= 1 or n2s <= 1:
+        raise ValueError("dimensions of s must be > 1")
+    n1, n2 = nfft
+    if n1s > n1 or n2s > n2:
+        raise ValueError("nfft must be >= size(s)")
+    r = fs * s.numel()
+
+    if ptype == 0:
+        pw = torch.fft.fftn(s, s=(n1, n2)).abs() ** 2 / r
+        return Periodogram2(pw, np.fft.fftfreq(n1, 1 / fs),
+                            np.fft.fftfreq(n2, 1 / fs))
+
+    mag = torch.fft.fft(torch.fft.rfft(s, n=n1, dim=0), n=n2, dim=1).abs() ** 2
+    nmin = min(n1, n2)
+    kmax = nmin // 2 + 1
+    n1max = n1 // 2 + 1
+    # wavenumber of each (i, j) bin, scaled for non-square inputs
+    c1, c2 = (n2 / n1, 1.0) if n1 != nmin else (1.0, n1 / n2)
+    i = np.arange(n1max)[:, None]
+    j = np.arange(n2)[None, :]
+    kj1 = np.where(j <= n2 // 2, j, j - n2).astype(np.float64)
+    wavenum = np.round(np.sqrt((c1 * i) ** 2 + (c2 * kj1) ** 2)).astype(
+        np.int64)
+    # doubling weights for the implicit negative-freq half of the rfft axis
+    wt = np.full((n1max, n2), 2.0)
+    wt[0, :] = 1.0
+    wt[-1, :] = 1.0 if n1 % 2 == 0 else 2.0
+    seg = np.where(wavenum < kmax, wavenum, kmax)  # overflow bucket
+    flat = (mag * torch.as_tensor(wt, device=mag.device).to(mag.dtype)
+            ).reshape(-1)
+    sums = mag.new_zeros(kmax + 1).index_add_(
+        0, torch.as_tensor(seg.reshape(-1), device=mag.device), flat)
+    sums = sums[:kmax] / r
+    if ptype == 2:
+        counts = np.zeros(kmax + 1)
+        np.add.at(counts, seg.reshape(-1), wt.reshape(-1))
+        sums = sums / torch.as_tensor(np.maximum(counts[:kmax], 1.0),
+                                      device=mag.device).to(sums.dtype)
+    return Periodogram(sums, np.arange(kmax) * (fs / nmin))
 
 
 # ---------------------------------------------------------------------------

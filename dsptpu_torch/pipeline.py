@@ -1,5 +1,6 @@
 """The flagship chain on torch tensors: the port's counterpart of
-dsptpu's __graft_entry__.entry.
+dsptpu's __graft_entry__.entry; and the drivers of the other paths
+(fftfilt_entry, filtfilt_lpc_entry, resample_entry, multitaper_entry).
 
     filt(b, x)  (127-tap FIR, K1) -> sosfilt(sos, y)  (SOS cascade, K2)
     -> welch_pgram + stft(psdonly=True)  (K3) -> power
@@ -33,11 +34,15 @@ from .ops import windows
 from .ops.dspbase import filt
 from .ops.lpc import lpc
 from .filters.stream_filt import FIRFilter
+from .ops.multitaper import (MTCoherenceConfig, MTConfig,
+                             MTSpectrogramConfig, mt_coherence,
+                             mt_spectrogram)
 from .ops.periodograms import power, stft, welch_pgram
 from .utils.device import check_full_f32, resolve_device
 
 __all__ = ["entry", "chain_params", "fftfilt_entry", "fftfilt_taps",
-           "filtfilt_lpc_entry", "resample_entry", "RESAMPLE_RATES"]
+           "filtfilt_lpc_entry", "resample_entry", "RESAMPLE_RATES",
+           "multitaper_entry", "MT_NFFT", "MT_OVERLAP", "MT_NW", "MT_NTAPERS"]
 
 
 def chain_params(order=8, cutoff=0.2, nfft=1024):
@@ -160,3 +165,36 @@ def resample_entry(device="cuda", n=10_000_000, arb_n=2_500_000):
     x = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
                         device=dev)
     return forward, (x,)
+
+
+# path D's multitaper geometry: BASELINE config 3's frames (nfft 1024,
+# hop 512) with 7 DPSS tapers of half-bandwidth 4
+MT_NFFT, MT_OVERLAP, MT_NW, MT_NTAPERS = 1024, 512, 4, 7
+
+
+def multitaper_entry(device="cuda", n=1_000_000, channels=64, coh_n=16384):
+    """(forward, (x,)): forward(x) maps x (n, channels) to
+    (mt_spectrogram power (MT_NFFT//2+1, frames, channels), mt_coherence
+    (channels, channels, coh_n//2+1)). The spectrogram takes frames of
+    MT_NFFT samples overlapping by MT_OVERLAP (1952 frames at the default
+    n) with MT_NTAPERS DPSS tapers of half-bandwidth MT_NW, uniformly
+    weighted, fs 1 (K3's K-window stack); the coherence takes the first
+    coh_n samples as a channel-major (channels, coh_n) matrix with the
+    same tapers, nfft coh_n. x is standard normal float32 from numpy
+    seed 0, on `device` (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_full_f32()
+    spec_cfg = MTSpectrogramConfig.create(
+        n, n_overlap_samples=MT_OVERLAP, mt_config=MTConfig.create(
+            MT_NFFT, nfft=MT_NFFT, nw=MT_NW, ntapers=MT_NTAPERS))
+    coh_cfg = MTCoherenceConfig.create(channels, mt_config=MTConfig.create(
+        coh_n, nfft=coh_n, nw=MT_NW, ntapers=MT_NTAPERS))
+
+    def forward(x):
+        """x: (n, channels) -> (spectrogram power, coherence), in x's
+        dtype."""
+        p = mt_spectrogram(x, config=spec_cfg).power
+        return p, mt_coherence(x[:coh_n].T, config=coh_cfg).coherence
+
+    return forward, (_stream(dev, n, channels),)

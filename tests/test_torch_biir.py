@@ -159,7 +159,7 @@ def test_k2_plain_need_state_matches_pallas_interpret(n, C):
                                need_state=True)
     check(y, y_ref, 1e-4)
     check(zf, zf_ref, 1e-4)
-    assert tbiir.launches == 0
+    assert tbiir.launches["biir"] == 0
 
 
 def test_k2_reverse_not_ported():
@@ -177,4 +177,4 @@ def test_k2_reverse_not_ported():
                                  torch.as_tensor(z0), reverse=True,
                                  n_eff=n_eff)
         check(got, want, 1e-4)
-    assert tbiir.launches == 0
+    assert tbiir.launches["biir"] == 0

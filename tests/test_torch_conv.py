@@ -186,7 +186,7 @@ def test_k4_plain_matches_pallas_interpret(n, nv, nfft, C):
     got = tos.osconv(torch.as_tensor(u[:, 0] if C == 1 else u),
                      torch.as_tensor(v), nfft)
     check(got, want, 2e-6)
-    assert tos.launches == 0
+    assert tos.launches["osconv"] == 0
 
 
 @pytest.mark.parametrize("nfft,nv,ok", [(16384, 4096, True),

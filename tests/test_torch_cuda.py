@@ -8,10 +8,12 @@ no JAX, so on a GPU machine without it they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: max|d| <= 3e-5 max|ref| for FIR, STFT, overlap-save and
-resampling (K6, K7 and the resampling filters against float64),
-<= 1e-4 for the IIR pass (both directions), Levinson, filtfilt and the
-whole float32 chain against its float64 run."""
+Tolerances: max|d| <= 3e-5 max|ref| for FIR, STFT (one window or a
+stack; per bin for the stack), overlap-save, resampling (K6, K7 and the
+resampling filters against float64) and the multitaper spectrogram,
+<= 1e-4 for the IIR pass (both directions), Levinson, filtfilt, the
+coherence and the whole float32 chain against its float64 run. The
+transposes (K8a-c) are exact."""
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ import dsptpu_torch
 from dsptpu_torch import kernels
 from dsptpu_torch.filters.filt import _blockss, _stack_cascade
 from dsptpu_torch.kernels import (arbd, biir, fir, levinson, osconv, pfb2,
-                                  stft)
+                                  stft, transpose)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,10 +43,10 @@ def check(got, want, tol):
     assert (got - want).abs().max() <= tol * want.abs().max()
 
 
-def launched_once(mod, call):
-    before = mod.launches
+def launched_once(name, call):
+    before = kernels.launch_counts()[name]
     out = call()
-    assert mod.launches == before + 1
+    assert kernels.launch_counts()[name] == before + 1
     return out
 
 
@@ -58,7 +60,7 @@ def randn(dev, *shape, seed=0):
                                     (33001, 64, 300), (5000, 40, 1536)])
 def test_fir_kernel_matches_plain(dev, n, C, nb):
     x, b = randn(dev, n, C, seed=n), randn(dev, nb, seed=nb)
-    y = launched_once(fir, lambda: fir.fir(x, b))
+    y = launched_once("fir", lambda: fir.fir(x, b))
     check(y, fir.fir_reference(x, b), 3e-5)
 
 
@@ -69,7 +71,7 @@ def test_biir_kernel_matches_plain(dev, n, C, need_state):
         dsptpu_torch.Lowpass(0.2), dsptpu_torch.Butterworth(8)))
     ss = _blockss(*_stack_cascade(sos.sos_array(), sos.g))
     x, z0 = randn(dev, n, C, seed=n), randn(dev, ss.p, C, seed=C)
-    got = launched_once(biir, lambda: biir.blockss_filt(ss, x, z0,
+    got = launched_once("biir", lambda: biir.blockss_filt(ss, x, z0,
                                                         need_state))
     want = biir.blockss_reference(ss, x, z0, need_state)
     pairs = zip(got, want) if need_state else [(got, want)]
@@ -85,7 +87,7 @@ def test_stft_kernel_matches_plain(dev, n, C, nfft, hop, accumulate):
     win = torch.hann_window(nfft, device=dev)
     k = (n - nfft) // hop + 1
     scale = torch.linspace(0.5, 2.0, nfft // 2 + 1, device=dev)
-    got = launched_once(stft, lambda: stft.stft_pow(x, win, nfft, hop, k,
+    got = launched_once("stft", lambda: stft.stft_pow(x, win, nfft, hop, k,
                                                     accumulate, scale))
     check(got, stft.stft_pow_reference(x, win, nfft, hop, k, accumulate,
                                        scale), 3e-5)
@@ -98,6 +100,9 @@ def test_entry_runs_every_kernel(dev):
     assert kernels.launch_counts() == {"fir": 1, "biir": 1, "stft": 2,
                                        "osconv": 0, "levinson": 0,
                                        "pfb2": 0, "arbd": 0,
+                                       "transpose2d": 0,
+                                       "transpose_tall": 0,
+                                       "spectro_permute": 0,
                                        "biir_reverse": 0}
     psd64, s64 = fwd(x.double())
     check(psd, psd64, 1e-4)
@@ -113,11 +118,11 @@ def test_wrappers_refuse_instead_of_falling_back(dev):
     ss = _blockss(*_stack_cascade(sos.sos_array(), sos.g))
     z0 = randn(dev, ss.p, 2, seed=1)
     # reverse, and filt with more than 512 taps, run their kernels
-    got = launched_once(biir, lambda: biir.blockss_filt(ss, x, z0,
+    got = launched_once("biir", lambda: biir.blockss_filt(ss, x, z0,
                                                         reverse=True))
     check(got, biir.blockss_reference(ss, x, z0, reverse=True), 1e-4)
     b = randn(dev, 600, seed=2)
-    got = launched_once(osconv, lambda: dsptpu_torch.filt(b, x))
+    got = launched_once("osconv", lambda: dsptpu_torch.filt(b, x))
     check(got, dsptpu_torch.filt(b.cpu().double(), x.cpu().double()).to(dev),
           3e-5)
     with pytest.raises(ValueError, match="need_state"):
@@ -147,7 +152,7 @@ def test_wrappers_refuse_instead_of_falling_back(dev):
 def test_osconv_kernel_matches_plain(dev, n, C, nv, nfft, out):
     x, v = randn(dev, n, C, seed=n), randn(dev, nv, seed=nv)
     out_len = None if out == "full" else n
-    got = launched_once(osconv, lambda: osconv.osconv(x, v, nfft, out_len))
+    got = launched_once("osconv", lambda: osconv.osconv(x, v, nfft, out_len))
     want = osconv.osconv_reference(x, v, nfft,
                                    n + nv - 1 if out_len is None else n)
     check(got, want, 3e-5)
@@ -169,7 +174,7 @@ def test_biir_reverse_kernel_matches_plain(dev, order, n, C, n_eff):
         ss = _blockss(*_stack_cascade(sos.sos_array(), sos.g))
     m = None if n_eff is None else (n // 128) * 128
     x, z0 = randn(dev, n, C, seed=n), randn(dev, ss.p, C, seed=C)
-    got = launched_once(biir, lambda: biir.blockss_filt(
+    got = launched_once("biir", lambda: biir.blockss_filt(
         ss, x, z0, reverse=True, n_eff=m))
     check(got, biir.blockss_reference(ss, x, z0, reverse=True, n_eff=m),
           1e-4)
@@ -181,7 +186,7 @@ def test_levinson_kernel_matches_plain(dev, p, C):
     x = randn(dev, 400, C, seed=p)
     R = torch.stack([(x[: 400 - l] * x[l:]).sum(0) / 400
                      for l in range(p + 1)])
-    got = launched_once(levinson, lambda: levinson.levinson(R, p))
+    got = launched_once("levinson", lambda: levinson.levinson(R, p))
     for g, w in zip(got, levinson.levinson_reference(R, p)):
         check(g, w, 1e-4)
 
@@ -237,7 +242,7 @@ def test_pfb2_kernel_matches_plain(dev, rate, n, history):
     """441/640's 441 x 58 bank (102 KB) is read from global memory; the
     others are staged in shared memory."""
     args = k6_args(dev, rate, n, history)
-    y, h = launched_once(pfb2, lambda: pfb2.pfb2(*args[:-1],
+    y, h = launched_once("pfb2", lambda: pfb2.pfb2(*args[:-1],
                                                  hist_len=args[-1]))
     yr, hr = pfb2.pfb2_reference(*args[:-1], hist_len=args[-1])
     check(y, yr, 3e-5)
@@ -248,7 +253,7 @@ def test_pfb2_kernel_bank_in_global_memory(dev, monkeypatch):
     """147/160 with its bank forced out of shared memory."""
     args = k6_args(dev, "147/160", 61951, True)
     monkeypatch.setattr(pfb2, "_SMEM_BANK_MAX", 0)
-    y = launched_once(pfb2, lambda: pfb2.pfb2(*args[:-1]))
+    y = launched_once("pfb2", lambda: pfb2.pfb2(*args[:-1]))
     check(y, pfb2.pfb2_reference(*args[:-1]), 3e-5)
 
 
@@ -278,7 +283,7 @@ def k7_args(dev, rate, n, mid_stream, seed=0):
 @pytest.mark.parametrize("rate", [0.9997, 0.99999, 0.999])
 def test_arbd_kernel_matches_plain(dev, rate, mid_stream):
     args = k7_args(dev, rate, 40037, mid_stream)
-    y = launched_once(arbd, lambda: arbd.arbd(*args))
+    y = launched_once("arbd", lambda: arbd.arbd(*args))
     check(y, arbd.arbd_reference(*args), 3e-5)
 
 
@@ -342,3 +347,101 @@ def test_streams_route_through_their_kernels(dev):
             counts["osconv"]) == (2, 1, 0, 0)
     for y, y64 in zip(ys, fwd(xe.double())):
         check(y, y64, 3e-5)
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("N1", [2, 3, 8, 16])
+@pytest.mark.parametrize("K", [1, 2, 7])
+def test_stft_stack_kernel_matches_plain(dev, K, N1, accumulate):
+    """K3 with a (K, nfft) window stack at ragged shapes, each bin held
+    to 3e-5 of its largest value. N1 = 3 and 16 take all nfft bins: at
+    N1 = 16 with K > 1 and the frame sum the kernel's channel group
+    drops to 4 to fit shared memory."""
+    nfft = 128 * N1
+    hop = 128 * max(1, N1 // 2)
+    C = 9
+    n = 7 * hop + nfft + 37
+    nframes = (n - nfft) // hop + 1
+    x = randn(dev, n, C, seed=N1 + K)
+    rng = np.random.default_rng(K)
+    win = torch.as_tensor(rng.uniform(0.1, 1.0, (K, nfft)).astype(np.float32),
+                          device=dev)
+    nbins = nfft if N1 in (3, 16) else nfft // 2 + 1
+    scale = torch.linspace(0.5, 2.0, nbins, device=dev)
+    got = launched_once("stft", lambda: stft.stft_pow(x, win, nfft, hop,
+                                                    nframes, accumulate,
+                                                    scale))
+    want = stft.stft_pow_reference(x, win, nfft, hop, nframes, accumulate,
+                                   scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    d = (got.double() - want.double()).abs().reshape(nbins, -1).amax(1)
+    ref = want.double().abs().reshape(nbins, -1).amax(1)
+    assert (d <= 3e-5 * ref).all()
+
+
+@pytest.mark.parametrize("shape", [(1000, 300), (513, 2048), (3, 70001)])
+def test_transpose2d_kernel_matches_plain(dev, shape):
+    x = randn(dev, *shape, seed=shape[0])
+    got = launched_once("transpose2d",
+                        lambda: transpose.transpose2d(x))
+    torch.cuda.synchronize()
+    assert torch.equal(got, transpose.transpose2d_reference(x))
+
+
+@pytest.mark.parametrize("M,C,TR,pad_to", [(10_000, 8, 2048, 12_000),
+                                           (70_001, 64, 8192, None),
+                                           (33, 3, 128, 300)])
+def test_transpose_tall_kernel_matches_plain(dev, M, C, TR, pad_to):
+    x = randn(dev, M, C, seed=M)
+    got = launched_once("transpose_tall",
+                        lambda: transpose.transpose_tall(x, TR, pad_to))
+    torch.cuda.synchronize()
+    assert torch.equal(got, transpose.transpose_tall_reference(x, TR, pad_to))
+
+
+@pytest.mark.parametrize("C,nb,N1,TB,l2", [(3, 2, 8, 16, 65),
+                                           (1, 1, 4, 8, 33),
+                                           (64, 2, 8, 32, 65),
+                                           (40, 1, 16, 8, 128)])
+def test_spectro_permute_kernel_matches_plain(dev, C, nb, N1, TB, l2):
+    tile = randn(dev, C, nb, N1, TB, 128, seed=C)
+    got = launched_once("spectro_permute",
+                        lambda: transpose.spectro_permute(tile, l2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, transpose.spectro_permute_reference(tile, l2))
+
+
+def test_multitaper_runs_the_stack_kernel(dev):
+    """mt_spectrogram on a CUDA float32 signal launches K3 once with the
+    taper stack; multitaper_entry's forward launches it once and agrees
+    with the same call in float64."""
+    x = randn(dev, 20000, 3, seed=5)
+    kernels.reset_launches()
+    s = dsptpu_torch.mt_spectrogram(x, 512, 256, nfft=512, ntapers=5)
+    assert kernels.launch_counts()["stft"] == 1
+    check(s.power, dsptpu_torch.mt_spectrogram(
+        x.double(), 512, 256, nfft=512, ntapers=5).power, 3e-5)
+    fwd, (xe,) = dsptpu_torch.multitaper_entry(device="cuda", n=40000,
+                                               channels=4, coh_n=4096)
+    kernels.reset_launches()
+    spec, coh = fwd(xe)
+    assert kernels.launch_counts()["stft"] == 1
+    spec64, coh64 = fwd(xe.double())
+    check(spec, spec64, 3e-5)
+    check(coh, coh64, 1e-4)
+
+
+def test_stack_and_transposes_refuse(dev):
+    x = randn(dev, 5000, 2)
+    with pytest.raises(ValueError):
+        stft.stft_pow(x, torch.ones(2, 256, device=dev), 512, 256, 3, False,
+                      torch.ones(257, device=dev))
+    with pytest.raises(TypeError):
+        transpose.transpose2d(x.double())
+    with pytest.raises(ValueError):
+        transpose.transpose_tall(x[:, 0])
+    with pytest.raises(TypeError):
+        transpose.spectro_permute(torch.zeros(2, 1, 4, 8, 128,
+                                              dtype=torch.float64,
+                                              device=dev), 3)

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 import dsptpu
 import dsptpu_torch
 from dsptpu_torch import kernels
-from dsptpu_torch.pipeline import chain_params
+from dsptpu_torch.pipeline import (MT_NFFT, MT_NTAPERS, MT_NW, MT_OVERLAP,
+                                   chain_params)
 
 import __graft_entry__
 
@@ -119,10 +120,35 @@ def test_filtfilt_lpc_entry_matches_dsptpu():
     assert set(kernels.launch_counts().values()) == {0}
 
 
+def test_multitaper_entry_matches_dsptpu():
+    """Path D at 30000 x 3: the multitaper spectrogram through K3's
+    K-window stack (its plain version on the CPU; nfft 1024, hop 512, 7
+    DPSS tapers, NW 4) and the coherence of the first 2048 samples,
+    against the same dsptpu calls. Tolerance 3e-5 (bench.py's
+    spectrogram bound) for the spectrogram, 1e-4 for the coherence."""
+    fwd, (xt,) = dsptpu_torch.multitaper_entry(device="cpu", n=30000,
+                                               channels=3, coh_n=2048)
+    x = jnp.asarray(xt.numpy())
+    cfg = dsptpu.MTConfig.create(MT_NFFT, nfft=MT_NFFT, nw=MT_NW,
+                                 ntapers=MT_NTAPERS)
+    spec_ref = dsptpu.mt_spectrogram(x, config=cfg,
+                                     n_overlap=MT_OVERLAP).power
+    coh_ref = dsptpu.mt_coherence(x[:2048].T, nw=MT_NW, ntapers=MT_NTAPERS,
+                                  nfft=2048).coherence
+    kernels.reset_launches()
+    spec, coh = fwd(xt)
+    assert spec.shape == (513, 57, 3) and coh.shape == (3, 3, 1025)
+    assert spec.dtype == torch.float32 and coh.dtype == torch.float32
+    check(spec, spec_ref, 3e-5)
+    check(coh, coh_ref)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
 def test_path_entries_without_cuda_raise():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the entries run on the card")
     for make in (dsptpu_torch.fftfilt_entry,
-                 dsptpu_torch.filtfilt_lpc_entry):
+                 dsptpu_torch.filtfilt_lpc_entry,
+                 dsptpu_torch.multitaper_entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

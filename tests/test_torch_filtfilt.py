@@ -152,7 +152,7 @@ def test_k2_reverse_plain_matches_pallas_interpret(n, C, n_eff):
     got = tbiir.blockss_filt(tss, torch.as_tensor(x), torch.as_tensor(z0),
                              reverse=True, n_eff=n_eff)
     check(got, want, 1e-4)
-    assert tbiir.launches == 0
+    assert tbiir.launches["biir"] == 0
 
 
 def test_k2_reverse_refusals():

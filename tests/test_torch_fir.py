@@ -76,14 +76,14 @@ def test_fir_plain_matches_pallas_interpret(nb, C):
     want = fir_pallas(jnp.asarray(x), jnp.asarray(b), interpret=True)
     got = tfir.fir(torch.as_tensor(x), torch.as_tensor(b))
     check(got, want, 3e-5)
-    assert tfir.launches == 0
+    assert tfir.launches["fir"] == 0
 
 
 def test_fir_cpu_tensor_runs_plain_version():
     x = torch.randn(1000, 2)
     b = torch.randn(9)
     assert torch.equal(tfir.fir(x, b), tfir.fir_reference(x, b))
-    assert tfir.launches == 0
+    assert tfir.launches["fir"] == 0
 
 
 def test_long_taps_route_not_ported():

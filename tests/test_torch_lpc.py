@@ -125,7 +125,7 @@ def test_k5_plain_matches_pallas_interpret(p, C):
     got = tlev.levinson(torch.as_tensor(R), p)
     for g, w in zip(got, want):
         check(g, w, 1e-4)
-    assert tlev.launches == 0
+    assert tlev.launches["levinson"] == 0
 
 
 @pytest.mark.parametrize("p,C,ok", [(2, 128, True), (64, 2500, True),

@@ -1,0 +1,253 @@
+"""Port parity for multitaper: dsptpu_torch's mt_pgram / mt_spectrogram /
+mt_cross_power_spectra / mt_coherence / allocate_output and the DPSS
+tapers against dsptpu's, and the plain version of K3's K-window stack
+(kernels/stft.stft_pow_reference, what the wrapper runs on a CPU tensor)
+against dsptpu's Pallas STFT kernel with a (K, nfft) window in interpret
+mode, decoded from its tile layout with bins_from_tile /
+onesided_bins_from_tile.
+
+Inputs come from a numpy seed and go to both packages as explicit
+float32 or float64 arrays. Tolerances: max|d| <= 1e-10 max|ref| in
+float64, <= 3e-5 max|ref| in float32 (bench.py's Welch / spectrogram
+bound). Under the tests' x64, dsptpu's _mt_power promotes float32 input
+to float64 where its float64 tapers meet the signal; the port keeps
+float32, and the float32 tolerance absorbs the difference. dsptpu's
+mt_pgram takes only a 1-D signal; the port's takes trailing channel dims
+like its other 1-D entry points, and each channel is held to dsptpu's
+1-D call. Host copies (dpss, dpsseig, dpss_config) match exactly."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import dsptpu
+from dsptpu.kernels.stft import (bins_from_tile, onesided_bins_from_tile,
+                                 stft_pow_pallas)
+from dsptpu.ops import multitaper as jmt
+from dsptpu.ops import windows as jwin
+
+import dsptpu_torch
+from dsptpu_torch import kernels
+from dsptpu_torch.convert import mtconfig_from_numpy
+from dsptpu_torch.kernels import stft as tstft
+
+TOL = {np.float64: 1e-10, np.float32: 3e-5}
+
+
+def check(got, want, tol):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    err = np.max(np.abs(got - want))
+    assert err <= tol * np.max(np.abs(want)), err
+
+
+def port_config(cfg):
+    """dsptpu MTConfig -> the port's, through its plain fields."""
+    return mtconfig_from_numpy(cfg.n_samples, cfg.fs, cfg.nfft, cfg.ntapers,
+                               cfg.onesided, cfg.window_array, cfg.r)
+
+
+def signal(shape, dtype, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("K", [1, 3, 7])
+@pytest.mark.parametrize("chans", [(), (3,), (2, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_mt_pgram_matches_dsptpu(dtype, chans, K):
+    x = signal((1000,) + chans, dtype, K)
+    got = dsptpu_torch.mt_pgram(torch.as_tensor(x), fs=2.0, nfft=1024,
+                                ntapers=K)
+    assert got.power.shape == (513,) + chans
+    cols = x.reshape(1000, -1)
+    gcols = got.power.reshape(513, -1)
+    for c in range(cols.shape[1]):
+        want = dsptpu.mt_pgram(jnp.asarray(cols[:, c]), fs=2.0, nfft=1024,
+                               ntapers=K)
+        check(gcols[:, c], want.power, TOL[dtype])
+        assert np.array_equal(got.freq, want.freq)
+
+
+# (length, chans, n, n_overlap, nfft, dtype, K): float32 cases with nfft
+# and hop multiples of 128 and n <= nfft take K3's stack (plain on the
+# CPU); dsptpu on the CPU takes its torch.fft-like XLA route
+SPEC_CASES = [
+    (20000, (3,), 512, 256, 512, np.float32, 7),
+    (20000, (), 1024, 512, 1024, np.float32, 3),
+    (20000, (2, 2), 512, 384, 512, np.float32, 1),
+    (12000, (3,), 1000, 500, None, np.float32, 7),   # nfft 1000: torch.fft
+    (12000, (2,), 512, 256, 512, np.float64, 3),     # float64: torch.fft
+]
+
+
+@pytest.mark.parametrize("length,chans,n,nov,nfft,dtype,K", SPEC_CASES)
+def test_mt_spectrogram_matches_dsptpu(length, chans, n, nov, nfft, dtype,
+                                       K):
+    x = signal((length,) + chans, dtype, n + K)
+    want = dsptpu.mt_spectrogram(jnp.asarray(x), n, nov, fs=100.0,
+                                 nfft=nfft, ntapers=K)
+    kernels.reset_launches()
+    got = dsptpu_torch.mt_spectrogram(torch.as_tensor(x), n, nov, fs=100.0,
+                                      nfft=nfft, ntapers=K)
+    assert got.power.dtype == torch.from_numpy(x).dtype
+    check(got.power, want.power, TOL[dtype])
+    assert np.array_equal(got.freq, want.freq)
+    assert np.array_equal(got.time, want.time)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_mt_spectrogram_config_forms():
+    """An MTSpectrogramConfig, and an MTConfig with n_overlap, give what
+    the keyword form gives; a wrong length is refused as in dsptpu."""
+    x = torch.as_tensor(signal((9000, 2), np.float32, 5))
+    mt = dsptpu_torch.MTConfig.create(512, fs=10.0, nfft=512, ntapers=4)
+    scfg = dsptpu_torch.MTSpectrogramConfig.create(9000, mt_config=mt,
+                                                   n_overlap_samples=128)
+    a = dsptpu_torch.mt_spectrogram(x, config=scfg)
+    b = dsptpu_torch.mt_spectrogram(x, config=mt, n_overlap=128)
+    c = dsptpu_torch.mt_spectrogram(x, 512, 128, fs=10.0, nfft=512,
+                                    ntapers=4)
+    assert torch.equal(a.power, b.power) and torch.equal(a.power, c.power)
+    jcfg = jmt.MTSpectrogramConfig.create(9000, 512, 128, fs=10.0, nfft=512,
+                                          ntapers=4)
+    assert np.array_equal(scfg.time, jcfg.time)
+    assert np.array_equal(a.time, jcfg.time)
+    with pytest.raises(ValueError, match="n_samples"):
+        dsptpu_torch.mt_spectrogram(x[:8000], config=scfg)
+
+
+@pytest.mark.parametrize("keep,weight", [(True, False), (False, True),
+                                         (True, True)])
+def test_dpss_config_through_convert(keep, weight):
+    """dsptpu's dpss_config with eigenvalue filtering / weighting runs
+    unchanged through the port once converted; the port's own
+    dpss_config gives the same host arrays bit for bit."""
+    jcfg = jmt.dpss_config(512, nw=4, fs=1000.0, nfft=512,
+                           keep_only_large_evals=keep,
+                           weight_by_evals=weight)
+    cfg = port_config(jcfg)
+    own = dsptpu_torch.dpss_config(512, nw=4, fs=1000.0, nfft=512,
+                                   keep_only_large_evals=keep,
+                                   weight_by_evals=weight)
+    assert np.array_equal(own.window, jcfg.window_array)
+    assert np.array_equal(own.r, np.asarray(jcfg.r))
+    assert own.ntapers == jcfg.ntapers == cfg.ntapers
+    x = signal((16000, 3), np.float32, 7)
+    want = jmt.mt_spectrogram(jnp.asarray(x), config=jcfg, n_overlap=256)
+    got = dsptpu_torch.mt_spectrogram(torch.as_tensor(x), config=cfg,
+                                      n_overlap=256)
+    check(got.power, want.power, 3e-5)
+    x1 = signal(512, np.float64, 8)
+    want = jmt.mt_pgram(jnp.asarray(x1), config=jcfg)
+    got = dsptpu_torch.mt_pgram(torch.as_tensor(x1), config=cfg)
+    check(got.power, want.power, 1e-10)
+
+
+@pytest.mark.parametrize("freq_range", [None, (0.05, 0.3)])
+@pytest.mark.parametrize("demean", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cross_spectra_and_coherence_match_dsptpu(dtype, demean,
+                                                  freq_range):
+    x = signal((5, 2000), dtype, 9) + 0.5
+    kw = dict(fs=1.0, demean=demean, freq_range=freq_range, nw=3)
+    want = dsptpu.mt_cross_power_spectra(jnp.asarray(x), **kw)
+    got = dsptpu_torch.mt_cross_power_spectra(torch.as_tensor(x), **kw)
+    assert got.power.dtype == (torch.complex64 if dtype == np.float32
+                               else torch.complex128)
+    check(got.power, want.power, TOL[dtype])
+    assert np.array_equal(got.freq, want.freq)
+    want = dsptpu.mt_coherence(jnp.asarray(x), **kw)
+    got = dsptpu_torch.mt_coherence(torch.as_tensor(x), **kw)
+    check(got.coherence, want.coherence, TOL[dtype])
+    assert np.array_equal(got.freq, want.freq)
+    cfg = dsptpu_torch.MTCoherenceConfig.create(5, 2000, fs=1.0,
+                                                demean=demean,
+                                                freq_range=freq_range, nw=3)
+    again = dsptpu_torch.mt_coherence(torch.as_tensor(x), config=cfg)
+    assert torch.equal(again.coherence, got.coherence)
+    assert np.array_equal(cfg.freq, want.freq)
+
+
+def test_allocate_output_shapes_match_dsptpu():
+    mt = (jmt.MTConfig.create(300, nfft=512),
+          dsptpu_torch.MTConfig.create(300, nfft=512))
+    pairs = [
+        mt,
+        (jmt.MTSpectrogramConfig.create(4000, 300, 100, nfft=512),
+         dsptpu_torch.MTSpectrogramConfig.create(4000, 300, 100, nfft=512)),
+        (jmt.MTCrossSpectraConfig.create(4, 300, freq_range=(0.1, 0.2)),
+         dsptpu_torch.MTCrossSpectraConfig.create(4, 300,
+                                                  freq_range=(0.1, 0.2))),
+        (jmt.MTCoherenceConfig.create(3, 300),
+         dsptpu_torch.MTCoherenceConfig.create(3, 300)),
+        (dsptpu.WelchConfig.create(4000, 256, onesided=False),
+         dsptpu_torch.WelchConfig.create(4000, 256, onesided=False)),
+    ]
+    for jcfg, cfg in pairs:
+        want = jmt.allocate_output(jcfg)
+        got = dsptpu_torch.allocate_output(cfg, device="cpu")
+        assert tuple(got.shape) == want.shape
+        assert got.device.type == "cpu" and not got.any()
+        assert got.is_complex() == jnp.iscomplexobj(want)
+    with pytest.raises(TypeError):
+        dsptpu_torch.allocate_output(object(), device="cpu")
+
+
+@pytest.mark.parametrize("nfft,K", [(384, 3), (1024, 2)])
+def test_k3_stack_plain_matches_pallas_interpret(nfft, K):
+    """(K, nfft) windows in both modes; nframes = 13 leaves a ragged
+    last block of TB = 8."""
+    rng = np.random.default_rng(nfft + K)
+    hop = 128 * max(1, nfft // 256)
+    nframes = 13
+    n = (nframes - 1) * hop + nfft + 37
+    x = rng.standard_normal((n, 3)).astype(np.float32)
+    wins = rng.uniform(0.1, 1.0, (K, nfft))
+    nb1 = nfft // 2 + 1
+    acc = stft_pow_pallas(jnp.asarray(x), wins, nfft, hop, nframes,
+                          accumulate=True, onesided=True, TB=8,
+                          interpret=True)
+    want = np.asarray(onesided_bins_from_tile(acc, nfft, nb1))   # (C, nb1)
+    got = tstft.stft_pow(torch.as_tensor(x), wins, nfft, hop, nframes, True,
+                         np.ones(nb1))                             # (nb1, C)
+    check(got.T, want, 3e-5)
+    tile = stft_pow_pallas(jnp.asarray(x), wins, nfft, hop, nframes,
+                           accumulate=False, TB=8, interpret=True)
+    want = np.asarray(bins_from_tile(tile, nfft, nfft))        # (C, k, nfft)
+    got = tstft.stft_pow(torch.as_tensor(x), wins, nfft, hop, nframes,
+                         False, np.ones(nfft))                 # (nfft, k, C)
+    check(got.permute(2, 1, 0), want, 3e-5)
+    assert tstft.launches["stft"] == 0
+
+
+def test_mt_spectrogram_matches_pallas_mt_spec():
+    """The port's stack route (plain K3 on the CPU) against dsptpu's
+    fused multitaper spectrogram called directly, in interpret mode on
+    the CPU."""
+    x = signal((30000, 3), np.float32, 10)
+    jcfg = jmt.dpss_config(1024, nw=4, fs=1000.0, nfft=1024,
+                           weight_by_evals=True)
+    want = jmt._pallas_mt_spec(jnp.asarray(x), 1024, 512, jcfg)
+    got = dsptpu_torch.mt_spectrogram(torch.as_tensor(x),
+                                      config=port_config(jcfg),
+                                      n_overlap=512)
+    check(got.power, want, 3e-5)
+
+
+@pytest.mark.parametrize("n,nw,K", [(64, 2, 3), (511, 2.5, 4), (512, 3, 5),
+                                    (1024, 4, 7), (1000, 4, None)])
+def test_dpss_and_dpsseig_match_dsptpu(n, nw, K):
+    want = np.asarray(jwin.dpss(n, nw, K))
+    got = dsptpu_torch.windows.dpss(n, nw, K)
+    assert np.array_equal(got, want)
+    assert np.array_equal(dsptpu_torch.windows.dpsseig(got, nw),
+                          np.asarray(jwin.dpsseig(want, nw)))
+
+
+@pytest.mark.parametrize("kw", [dict(padding=10), dict(zerophase=True)])
+def test_dpss_options_match_dsptpu(kw):
+    want = np.asarray(jwin.dpss(256, 3, 4, **kw))
+    assert np.array_equal(dsptpu_torch.windows.dpss(256, 3, 4, **kw), want)

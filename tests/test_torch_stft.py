@@ -89,7 +89,7 @@ def test_stft_matches_dsptpu(onesided, psdonly):
 @pytest.mark.parametrize("chans", [(), (2, 2)])
 def test_periodogram_matches_dsptpu(dtype, onesided, chans):
     """1-D signals, alone or with two channel dims (a matrix is a 2-D
-    periodogram in dsptpu, not ported yet)."""
+    periodogram in dsptpu: test_2d_periodogram_not_ported)."""
     rng = np.random.default_rng(12)
     x = rng.standard_normal((1000,) + chans).astype(dtype)
     win = np.hamming(1000)
@@ -124,9 +124,14 @@ def test_k3_plain_matches_pallas_interpret(nfft):
     got = tstft.stft_pow(torch.as_tensor(x), win, nfft, hop, nframes,
                          False, np.ones(nfft))                 # (nfft, k, C)
     check(got.permute(2, 1, 0), want, 3e-5)
-    assert tstft.launches == 0
+    assert tstft.launches["stft"] == 0
 
 
 def test_2d_periodogram_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dsptpu_torch.periodogram(torch.zeros(64, 64))
+    """A matrix is dsptpu's 2-D periodogram (it once raised here); now
+    ported: full, radial sum and radial average agree with dsptpu."""
+    x = np.random.default_rng(13).standard_normal((64, 48))
+    for kw in ({}, dict(radialsum=True), dict(radialavg=True)):
+        want = dsptpu.periodogram(jnp.asarray(x), fs=2.0, **kw)
+        got = dsptpu_torch.periodogram(torch.as_tensor(x), fs=2.0, **kw)
+        check(got.power, want.power, 1e-10)
