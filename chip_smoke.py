@@ -60,6 +60,12 @@ TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
        "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5,
        "stft_mt": 3e-5, "coherence": 1e-4}
 
+# K3's edge cases (K, nfft, hop, C, nbins), also in tests/test_torch_cuda.py
+STFT_EDGES = [(15, 2048, 1024, 9, 1025), (64, 2048, 1024, 3, 2048),
+              (1, 1024, 512, 1, 513), (7, 1024, 512, 64, 513),
+              (1, 1024, 1024, 5, 513), (3, 640, 1280, 4, 640),
+              (1, 1024, 512, 64, 1), (2, 384, 128, 3, 7)]
+
 
 def log(*a):
     print(*a, flush=True)
@@ -211,17 +217,17 @@ def small_cases(dev):
                     f"{'sum' if acc else 'frames'} n={n} C={C} "
                     f"nfft={nfft} hop={hop} nbins={nbins}", by_bin=True)
 
-    # K3 with a (K, nfft) window stack (multitaper), both modes; N1 = 3
-    # and 16 take all nfft bins (N1 = 16 summed with K > 1: channel
-    # group 4)
+    # K3 at every N1 (one kernel template each) with a (K, nfft) window
+    # stack (multitaper; K = 1 a single window), both modes; odd N1 take
+    # all nfft bins
     for K in (1, 2, 7):
-        for N1 in (2, 3, 8, 16):
+        for N1 in range(2, 17):
             nfft, hop = 128 * N1, 128 * max(1, N1 // 2)
             n, C = 7 * hop + nfft + 37, 9
             k = (n - nfft) // hop + 1
             x = t(rng.standard_normal((n, C)))
             win = t(rng.uniform(0.1, 1.0, (K, nfft)))
-            nbins = nfft if N1 in (3, 16) else nfft // 2 + 1
+            nbins = nfft if N1 % 2 else nfft // 2 + 1
             sc = t(rng.uniform(0.5, 2.0, nbins))
             for acc in (True, False):
                 compare("stft", stft.stft_pow(x, win, nfft, hop, k, acc, sc),
@@ -229,6 +235,26 @@ def small_cases(dev):
                                                 sc),
                         f"stack K={K} {'sum' if acc else 'frames'} n={n} "
                         f"C={C} nfft={nfft} nbins={nbins}", by_bin=True)
+    # K3's edges: windows past the shared-memory budget (K 15 and 64 at
+    # nfft 2048), C 1 and 64, hop nfft and 2 nfft, nbins 1 and 7
+    for K, nfft, hop, C, nbins in STFT_EDGES:
+        n = 6 * hop + nfft + 37
+        k = (n - nfft) // hop + 1
+        x = t(rng.standard_normal((n, C)))
+        win = t(rng.uniform(0.1, 1.0, (K, nfft)))
+        sc = t(rng.uniform(0.5, 2.0, nbins))
+        for acc in (True, False):
+            compare("stft", stft.stft_pow(x, win, nfft, hop, k, acc, sc),
+                    stft.stft_pow_reference(x, win, nfft, hop, k, acc, sc),
+                    f"edge K={K} {'sum' if acc else 'frames'} n={n} C={C} "
+                    f"nfft={nfft} hop={hop} nbins={nbins}", by_bin=True)
+    # the Welch sum repeats bit for bit (fixed partition, no atomics)
+    x = t(rng.standard_normal((200_000, 64)))
+    win = t(np.hanning(1024))
+    sc = t(np.ones(513))
+    k = (200_000 - 1024) // 512 + 1
+    exact("stft", stft.stft_pow(x, win, 1024, 512, k, True, sc),
+          stft.stft_pow(x, win, 1024, 512, k, True, sc), "Welch twice")
 
     # K8a-c, exact
     from dsptpu_torch.kernels import transpose as tp
@@ -957,7 +983,8 @@ def main():
         logf = os.path.join(os.path.dirname(paths[name]), f"{name}.log")
         if os.path.exists(logf):
             for line in open(logf):
-                if "registers" in line or "spill" in line.lower():
+                if ("registers" in line or "spill" in line.lower()
+                        or (name == "stft" and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
     log("kernels to build and check: " + ", ".join(_build.SOURCES))
 

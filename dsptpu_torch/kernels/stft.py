@@ -5,32 +5,35 @@ Replaces dsptpu/kernels/stft.py:stft_pow_pallas (:295; Pallas `_kernel`
 :132) and kernels/transpose.py:regroup_planes_pallas (:132), the TPU
 kernel's input-layout pass: the CUDA kernel reads each frame straight
 from the time-major (n, C) signal at f*hop, zero past n. Per frame it
-applies the window, a length-nfft real DFT (the four-step split of the
-TPU kernel, nfft = N1*128 with 2 <= N1 <= 16) and |X|^2, then either
-writes the scaled bins in order per frame, (nbins, nframes, C), or sums
-them over the frames (Welch), (nbins, C), through per-block partial sums
-and a second pass: no atomics, so results repeat from run to run.
+applies the window, a length-nfft DFT (nfft = N1*128 with 2 <= N1 <= 16)
+and |X|^2, then either writes the scaled bins in order per frame,
+(nbins, nframes, C), or sums them over the frames (Welch), (nbins, C),
+through per-block partial sums and a second pass: no atomics, so results
+repeat from run to run.
 
 The window may be one (nfft,) window or a stack (K, nfft) (multitaper:
-fold a per-taper weight into its window as w_m / sqrt(r_m)). The
-kernel loads each frame into shared memory once (windowed by a single
-window, raw for a stack), runs the DFT per window and sums |X|^2 over
-the windows, in order, in a per-frame accumulator in shared memory; the
-bin scale is applied once at the store. The windows stay in global
-memory, so K is not bounded by shared memory; the kernel's channel
-group (channels per block) halves from 8 where its buffers would not
-fit in the 227 KB a block may have (nfft 2048, all nfft bins, K > 1,
-summed: 4).
+fold a per-taper weight into its window as w_m / sqrt(r_m)); |X|^2 is
+summed over the K windows in order and the bin scale applied once at
+the store.
 
-Bound on an H100: HBM bytes in both modes at K = 1. A real FFT with the
-window and |X|^2 needs ~28 f32 flops per sample per frame at nfft 1024,
-under the time to read the signal once (summed over frames) or to read
-it and write nbins floats per frame and channel (per frame); K windows
-need K times the flops, which bound the per-frame mode from K = 3 on.
+The kernel is a register-resident mixed-radix FFT of two real channels
+per complex transform: an N1-point DFT per column, a 16-point and an
+8-point FFT per 128-point row, two exchanges through shared memory, and
+the channels separated where the thread holding bin k also holds bin
+nfft - k. Each thread keeps its bins' sums over windows and frames in
+registers. Blocks are one wave on the card, each over a fixed run of
+frames (their count comes from the kernel's entry point,
+`dsptpu_stft_blocks`); the entry point also decides whether the windows
+fit in shared memory. Any K >= 1 launches.
+
+Bound on an H100: HBM bytes at K = 1 (reading the signal; per frame,
+also writing nbins floats per frame and channel); a real FFT with the
+window and |X|^2 (~2.5 nfft log2 nfft flops per frame and window) at
+67 TFLOP/s bounds the K-window stack.
 
 `stft_pow` launches the kernel for a CUDA tensor and runs
-`stft_pow_reference`, the plain PyTorch version of the same four-step
-arithmetic, for a CPU tensor. `launches["stft"]` counts kernel
+`stft_pow_reference`, the plain PyTorch version (the four-step DFT as
+tensor products), for a CPU tensor. `launches["stft"]` counts kernel
 launches.
 """
 
@@ -45,12 +48,12 @@ __all__ = ["stft_pow", "stft_pow_reference", "stft_supported", "launches"]
 
 launches = {"stft": 0}
 
-# dsptpu_stft_pow(x, win, w1, tw, w128, scale, part, out, n, C, N1, hop,
-#                 nframes, nbins, fpb, accumulate, K, stream)
+# dsptpu_stft_pow(x, win, r1, tw, r128, scale, part, out, n, C, N1, hop,
+#                 nframes, nbins, accumulate, K, stream)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
-    ctypes.c_int] * 8 + [ctypes.c_void_p]
-
-_FPB_SUM = 16      # frames per block when summing (partials per channel)
+    ctypes.c_int] * 7 + [ctypes.c_void_p]
+# dsptpu_stft_blocks(N1, C, nframes, K, &nblk)
+_BLOCKS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 _tab_cache = {}
 _host_cache = {}
 
@@ -62,20 +65,24 @@ def stft_supported(nfft, hop, dtype):
 
 
 def _tables(nfft, device):
-    """float64 host tables cast to float32, on `device`: w1 (N1, 2)
-    roots of the first stage, twiddles tw (R, 128, 2) for rows
-    k1 < R = N1//2 + 1, w128 (64, 2) roots of the 128-point FFT, as
-    (re, im) pairs; and the bin map idx (nfft,) into the (R, 128) rows
+    """float64 host tables cast to float32, on `device`, as (re, im)
+    pairs: r1 (16, 2) roots W_N1^m for m < N1 (zero past N1), tw
+    (N1, 128, 2) twiddles W_nfft^(k1 j2), r128 (256, 2): roots W_128^m
+    for m < 128, then the 16-point pass's twiddles W_128^(i q) at
+    128 + 8 i + q (i < 16, q < 8); and the bin map idx (nfft,) of the
+    plain version into rows k1 <= N1/2 of its (R, 128) four-step output
     (mirrored rows k1 > N1/2), host int64."""
     key = (nfft, str(device))
     hit = _tab_cache.get(key)
     if hit is None:
         N1 = nfft // 128
-        R = N1 // 2 + 1
-        w1 = np.exp(-2j * np.pi * np.arange(N1) / N1)
-        tw = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(128))
+        r1 = np.zeros(16, np.complex128)
+        r1[:N1] = np.exp(-2j * np.pi * np.arange(N1) / N1)
+        tw = np.exp(-2j * np.pi * np.outer(np.arange(N1), np.arange(128))
                     / nfft)
-        w128 = np.exp(-2j * np.pi * np.arange(64) / 128)
+        r128 = np.exp(-2j * np.pi * np.concatenate([
+            np.arange(128), np.outer(np.arange(16), np.arange(8)).ravel()])
+            / 128)
 
         def pairs(z):
             return torch.as_tensor(np.stack([z.real, z.imag], -1).astype(
@@ -85,7 +92,7 @@ def _tables(nfft, device):
         k1, k2 = k % N1, k // N1
         idx = np.where(k1 <= N1 // 2, k1 * 128 + k2,
                        (N1 - k1) * 128 + (127 - k2))
-        hit = (pairs(w1), pairs(tw), pairs(w128), idx)
+        hit = (pairs(r1), pairs(tw), pairs(r128), idx)
         _tab_cache[key] = hit
     return hit
 
@@ -120,9 +127,10 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
     xp[:n] = x
     raw = xp.T.unfold(1, nfft, hop)[:, :nframes]            # (C, k, nfft)
     dev = x.device
-    w1, TW, _, idx = _tables(nfft, dev)
+    r1, tw, _, idx = _tables(nfft, dev)
+    TW = tw[:R]
     m = (np.arange(R)[:, None] * np.arange(N1)[None, :]) % N1
-    W1 = w1[torch.as_tensor(m, device=dev)]                 # (R, N1, 2)
+    W1 = r1[torch.as_tensor(m, device=dev)]                 # (R, N1, 2)
     w2 = np.exp(-2j * np.pi * np.outer(np.arange(128), np.arange(128))
                 / 128)
     W2re = torch.as_tensor(w2.real.astype(np.float32), device=dev)
@@ -172,25 +180,26 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     N1 = nfft // 128
     nbins = scale.shape[0]
     dev = xc.device
-    w1, tw, w128, _ = _tables(nfft, dev)
+    r1, tw, r128, _ = _tables(nfft, dev)
     win = win.contiguous()
     scale = scale.contiguous()
+    part = None
     if accumulate:
-        fpb = _FPB_SUM
-        nblk = -(-nframes // fpb)
-        part = torch.empty((nblk, nbins, C), dtype=torch.float32,
+        nblk = ctypes.c_int(0)
+        blocks = _build.entry("stft", "dsptpu_stft_blocks", _BLOCKS_ARGTYPES)
+        _build.check("stft", blocks(N1, C, nframes, K, ctypes.byref(nblk)),
+                     "stft kernel plan")
+        part = torch.empty((nblk.value, nbins, C), dtype=torch.float32,
                            device=dev)
         out = torch.empty((nbins, C), dtype=torch.float32, device=dev)
     else:
-        fpb = 1
-        part = None
         out = torch.empty((nbins, nframes, C), dtype=torch.float32,
                           device=dev)
     f = _build.entry("stft", "dsptpu_stft_pow", _ARGTYPES)
-    err = f(xc.data_ptr(), win.data_ptr(), w1.data_ptr(), tw.data_ptr(),
-            w128.data_ptr(), scale.data_ptr(),
+    err = f(xc.data_ptr(), win.data_ptr(), r1.data_ptr(), tw.data_ptr(),
+            r128.data_ptr(), scale.data_ptr(),
             part.data_ptr() if part is not None else None, out.data_ptr(),
-            n, C, N1, hop, nframes, nbins, fpb, int(accumulate), K,
+            n, C, N1, hop, nframes, nbins, int(accumulate), K,
             _build.stream_of(xc))
     _build.check("stft", err, "stft kernel launch")
     launches["stft"] += 1

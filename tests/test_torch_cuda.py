@@ -350,13 +350,12 @@ def test_streams_route_through_their_kernels(dev):
 
 
 @pytest.mark.parametrize("accumulate", [True, False])
-@pytest.mark.parametrize("N1", [2, 3, 8, 16])
+@pytest.mark.parametrize("N1", [2, 3, 5, 7, 8, 15, 16])
 @pytest.mark.parametrize("K", [1, 2, 7])
 def test_stft_stack_kernel_matches_plain(dev, K, N1, accumulate):
     """K3 with a (K, nfft) window stack at ragged shapes, each bin held
-    to 3e-5 of its largest value. N1 = 3 and 16 take all nfft bins: at
-    N1 = 16 with K > 1 and the frame sum the kernel's channel group
-    drops to 4 to fit shared memory."""
+    to 3e-5 of its largest value. N1 = 3 and 16 take all nfft bins; odd
+    N1 run the direct odd-radix first stage."""
     nfft = 128 * N1
     hop = 128 * max(1, N1 // 2)
     C = 9
@@ -373,11 +372,54 @@ def test_stft_stack_kernel_matches_plain(dev, K, N1, accumulate):
                                                     scale))
     want = stft.stft_pow_reference(x, win, nfft, hop, nframes, accumulate,
                                    scale)
+    check_by_bin(got, want, 3e-5)
+
+
+def check_by_bin(got, want, tol):
+    """Each bin (axis 0) within tol of its largest reference value."""
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got).all()
+    nbins = want.shape[0]
     d = (got.double() - want.double()).abs().reshape(nbins, -1).amax(1)
     ref = want.double().abs().reshape(nbins, -1).amax(1)
-    assert (d <= 3e-5 * ref).all()
+    assert (d <= tol * ref).all()
+
+
+@pytest.mark.parametrize("accumulate", [True, False])
+@pytest.mark.parametrize("K,nfft,hop,C,nbins", [
+    (15, 2048, 1024, 9, 1025), (64, 2048, 1024, 3, 2048),
+    (1, 1024, 512, 1, 513), (7, 1024, 512, 64, 513),
+    (1, 1024, 1024, 5, 513), (3, 640, 1280, 4, 640),
+    (1, 1024, 512, 64, 1), (2, 384, 128, 3, 7)])
+def test_stft_kernel_edge_cases(dev, K, nfft, hop, C, nbins, accumulate):
+    """Windows past the kernel's shared-memory budget (K = 15 and 64 at
+    nfft 2048, read through L1), C = 1 and 64, hop = nfft and 2 nfft,
+    nbins = 1 and 7 (chip_smoke.py's STFT_EDGES)."""
+    n = 6 * hop + nfft + 37
+    nframes = (n - nfft) // hop + 1
+    x = randn(dev, n, C, seed=K + C)
+    rng = np.random.default_rng(nfft + K)
+    win = torch.as_tensor(rng.uniform(0.1, 1.0, (K, nfft)).astype(np.float32),
+                          device=dev)
+    scale = torch.linspace(0.5, 2.0, nbins, device=dev)
+    got = launched_once("stft", lambda: stft.stft_pow(x, win, nfft, hop,
+                                                    nframes, accumulate,
+                                                    scale))
+    check_by_bin(got, stft.stft_pow_reference(x, win, nfft, hop, nframes,
+                                              accumulate, scale), 3e-5)
+
+
+def test_welch_kernel_repeats_bit_for_bit(dev):
+    """Two Welch sums of the same CUDA input are equal bit for bit: a
+    fixed frame partition and a fixed-order second pass, no atomics."""
+    x = randn(dev, 200_000, 64, seed=9)
+    win = torch.hann_window(1024, device=dev)
+    scale = torch.ones(513, device=dev)
+    k = (200_000 - 1024) // 512 + 1
+    a = stft.stft_pow(x, win, 1024, 512, k, True, scale)
+    b = stft.stft_pow(x, win, 1024, 512, k, True, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", [(1000, 300), (513, 2048), (3, 70001)])
