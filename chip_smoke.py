@@ -34,7 +34,7 @@ to 0 just before it and read just after:
 Each path's output is compared with a float64 run of the same call on
 the card. The STFT kernel is also held to its plain version bin by bin,
 on white input at the main path's shapes. Kernel times are CUDA-event
-medians; one more call of each path runs under torch.profiler, for the
+medians; two more calls of each path run under torch.profiler, for the
 device time by kernel and the device's busy share.
 
 Prints, in order: the card (nvidia-smi name and power limit), the build,
@@ -157,8 +157,8 @@ def exact(name, got, want, what):
 def small_cases(dev):
     """Every kernel against its plain version at small ragged shapes."""
     import torch
-    from dsptpu_torch.filters.filt import _blockss, _stack_cascade
-    from dsptpu_torch.filters.filt import _single_ss
+    from dsptpu_torch.filters.filt import (_blockss, _cascade_ss,
+                                           _single_ss, _stack_cascade)
     from dsptpu_torch.kernels import biir, fir, levinson, osconv, stft
     from dsptpu_torch import Butterworth, Lowpass, as_sos, digitalfilter
     rng = np.random.default_rng(1)
@@ -176,26 +176,31 @@ def small_cases(dev):
     b1 = t(rng.standard_normal(127))
     compare("fir", fir.fir(x1, b1), fir.fir_reference(x1, b1), "1-D n=40037")
 
-    # a well-damped 10-section cascade (p = 20, tables padded to 32)
+    # a well-damped 10-section cascade (p = 20, tables padded to 32); each
+    # cascade with its sections (the SOS output stage) and without them
+    # (the general F stage), 1 to 16 sections
     r, th = rng.uniform(0.3, 0.8, 10), rng.uniform(0.1, 3.0, 10)
     sos10 = np.column_stack([np.ones(10), rng.uniform(-1, 1, (10, 2)),
                              -2 * r * np.cos(th), r * r])
-    for sos, g in [(as_sos(digitalfilter(Lowpass(cut), Butterworth(order))),
-                    None) for order, cut in [(8, 0.2), (12, 0.3)]] + [
-                   (sos10, 1.0)]:
-        if g is None:
-            sos, g = sos.sos_array(), sos.g
-        ss = _blockss(*_stack_cascade(sos, g))
+    cascades = [(sos10, 0.8)] + [
+        (f.sos_array(), 1.3 * f.g) for f in (
+            as_sos(digitalfilter(Lowpass(cut), Butterworth(order)))
+            for order, cut in [(2, 0.3), (8, 0.2), (12, 0.3), (32, 0.35)])]
+    for ss in [_blockss(*_stack_cascade(sos, g)) for sos, g in cascades] + [
+            _cascade_ss(sos, g) for sos, g in cascades]:
+        stage = "F" if ss.sections is None else "SOS"
         for n, C in [(5003, 3), (4096, 64), (70001, 2)]:
             x = t(rng.standard_normal((n, C)))
             z0 = t(rng.standard_normal((ss.p, C)))
             compare("biir", biir.blockss_filt(ss, x, z0),
                     biir.blockss_reference(ss, x, z0),
-                    f"p={ss.p} n={n} C={C}")
+                    f"{stage} p={ss.p} n={n} C={C}")
             y, zf = biir.blockss_filt(ss, x, z0, need_state=True)
             yr, zr = biir.blockss_reference(ss, x, z0, need_state=True)
-            compare("biir", y, yr, f"need_state y p={ss.p} n={n} C={C}")
-            compare("biir", zf, zr, f"need_state z p={ss.p} n={n} C={C}")
+            compare("biir", y, yr,
+                    f"{stage} need_state y p={ss.p} n={n} C={C}")
+            compare("biir", zf, zr,
+                    f"{stage} need_state z p={ss.p} n={n} C={C}")
     ss = _blockss(*_single_ss([0.2, 0.1, 0.05, 0.02],
                               [1.0, -0.5, 0.25, -0.1]))
     x = t(rng.standard_normal((1000, 5)))
@@ -275,12 +280,14 @@ def small_cases(dev):
               tp.spectro_permute_reference(x, l2),
               f"C={C} nb={nb} N1={N1} TB={TB} l2={l2}")
 
-    # K4: each nfft with a short filter and the longest its gate takes
-    # (advance L >= max(128, 16 N1)); two non-power-of-two sizes run the
-    # odd radix stage
-    for nfft, nvs in [(1024, (127, 897)), (4096, (1025, 3585)),
+    # K4: one nfft per M template (256 ... 16384), with a short filter
+    # and, for some, the longest its gate takes (advance L >= max(128,
+    # 16 N1)); three sizes with an odd factor run the radix-m stage (384:
+    # the M = 128 template)
+    for nfft, nvs in [(256, (100,)), (512, (300,)), (1024, (127, 897)),
+                      (2048, (1025,)), (4096, (1025, 3585)),
                       (8192, (300, 7169)), (16384, (4096, 14337)),
-                      (1920, (500,)), (384, (200,))]:
+                      (1920, (500,)), (384, (200,)), (640, (300,))]:
         for nv in nvs:
             for n, C in [(nfft * 3 + 77, 1), (nfft * 5 + 13, 3),
                          (nfft * 2 + 101, 16), (nfft * 4 + 1, 17)]:
@@ -298,7 +305,9 @@ def small_cases(dev):
     sos8 = as_sos(digitalfilter(Lowpass(0.2), Butterworth(8)))
     ss8 = _blockss(*_stack_cascade(sos8.sos_array(), sos8.g))
     ss20 = _blockss(*_stack_cascade(sos10, 1.0))
-    for ss in (ss3, ss8, ss20):
+    for ss in (ss3, ss8, ss20, _cascade_ss(sos8.sos_array(), 1.3 * sos8.g),
+               _cascade_ss(sos10, 0.8), _cascade_ss(*cascades[1]),
+               _cascade_ss(*cascades[-1])):
         for n, C in [(5003, 1), (4097, 3), (70001, 64)]:
             x = t(rng.standard_normal((n, C)))
             z0 = t(rng.standard_normal((ss.p, C)))
@@ -307,6 +316,7 @@ def small_cases(dev):
                         biir.blockss_filt(ss, x, z0, reverse=True, n_eff=m),
                         biir.blockss_reference(ss, x, z0, reverse=True,
                                                n_eff=m),
+                        f"{'F' if ss.sections is None else 'SOS'} "
                         f"p={ss.p} n={n} C={C} n_eff={m}")
 
     # K5
@@ -391,36 +401,85 @@ def k7_args(dev, rate, n, mid_stream, rng):
             t(k.dpfb_t.T, np.float32), out_len)
 
 
-def profile_main_path(forward, x, call_ms, label="main path"):
-    """Device time by kernel over one call of a path (torch.profiler),
-    and its share of call_ms, the call's unprofiled time. The profiler
-    runs a warm-up call before the recorded one: without it, a record of
-    the first kernel was once missing from a call of path C."""
+# the __global__ kernels each launch counter stands for (name parts, as
+# torch.profiler reports them); "biir_reverse" counts a subset of biir's
+# calls, so it asks for the same kernels
+DEVICE_KERNELS = {
+    "fir": ("fir_kernel",), "stft": ("stft_kernel",),
+    "biir": ("inject_kernel", "scan_kernel", "carry_kernel", "output"),
+    "biir_reverse": ("inject_kernel", "scan_kernel", "carry_kernel",
+                     "output"),
+    "osconv": ("osconv_kernel",), "levinson": ("levinson_kernel",),
+    "pfb2": ("pfb2_kernel",), "arbd": ("arbd_kernel",)}
+
+
+CALLS_PROFILED = 2
+
+
+def _profile_once(forward, x):
+    """key_averages() of CALLS_PROFILED calls of forward(x) under
+    torch.profiler, after a warm-up step inside the profiler's schedule.
+    Each step starts with a short spin kernel: the first device records of
+    a window have gone missing (K6 in a run of path C, K1 in one of the
+    main path), so the spin takes that place and the path's kernels
+    follow it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    forward(x)
-    torch.cuda.synchronize()
     traces = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: traces.append(p.key_averages())
                  ) as prof:
         for _ in range(2):
-            forward(x)
+            torch.cuda._sleep(200_000)
+            for _ in range(CALLS_PROFILED):
+                forward(x)
             torch.cuda.synchronize()
             prof.step()
-    avg = traces[0]
+    return traces[0]
+
+
+def profile_main_path(forward, x, call_ms, counts, label="main path"):
+    """Device time by kernel per call of a path (torch.profiler over
+    CALLS_PROFILED calls), and its share of call_ms, the call's
+    unprofiled time. Every kernel that `counts` (the launch counters of
+    the path's run) says was launched must have a device record: the
+    profile is taken again once if one is missing, and the run fails if
+    it is still missing."""
+    import torch
+    from torch.autograd import DeviceType
+    forward(x)
+    torch.cuda.synchronize()
+    want = sorted({part for name, c in counts.items() if c
+                   for part in DEVICE_KERNELS[name]})
+    for attempt in (1, 2):
+        avg = _profile_once(forward, x)
+        dev_events = [e for e in avg if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation and "sleep" not in e.key]
+        missing = [w for w in want
+                   if not any(w in e.key for e in dev_events)]
+        if not missing:
+            break
+        log(f"profile ({label}), attempt {attempt}: no device record of "
+            f"{missing} (launch counts {counts}); device records: "
+            + "; ".join(e.key[:60] for e in dev_events))
+    else:
+        raise AssertionError(f"profile ({label}): counted kernels without "
+                             f"a device record: {missing}")
     log(avg.table(sort_by="self_cuda_time_total", row_limit=14,
                   max_name_column_width=40))
+    for w in want:
+        ms = sum(e.self_device_time_total for e in dev_events
+                 if w in e.key) / 1e3 / CALLS_PROFILED
+        log(f"  device time of {w} per call: {ms:.4f} ms")
     # device-side events only: a torch op's own entry repeats the time
     # of the kernels it launched
-    busy_ms = sum(e.self_device_time_total for e in avg
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
-    log(f"profile ({label}): device busy {busy_ms:.3f} ms of a "
-        f"{call_ms:.3f} ms call (idle share "
-        f"{max(0.0, 1 - busy_ms / call_ms):.3f})")
+    busy_ms = sum(e.self_device_time_total
+                  for e in dev_events) / 1e3 / CALLS_PROFILED
+    log(f"profile ({label}): device busy {busy_ms:.3f} ms per call of "
+        f"{call_ms:.3f} ms (idle share "
+        f"{max(0.0, 1 - busy_ms / call_ms):.3f}; the table sums "
+        f"{CALLS_PROFILED} calls)")
 
 
 def path_a(dev):
@@ -484,7 +543,7 @@ def path_a(dev):
                              "non-finite output")
     e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
     log(f"path A end to end: {e2e:.3f} ms (median of 5)")
-    profile_main_path(forward, x, e2e, "path A")
+    profile_main_path(forward, x, e2e, counts, "path A")
     compare("osconv", y, forward(x.double()), "path A fftfilt vs float64")
     return counts, [row]
 
@@ -497,14 +556,14 @@ def path_b(dev):
     import torch
     import dsptpu_torch
     from dsptpu_torch import kernels
-    from dsptpu_torch.filters.filt import _blockss, _stack_cascade
+    from dsptpu_torch.filters.filt import _cascade_ss
     from dsptpu_torch.kernels import biir, levinson
 
     forward, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda")
     n, C = x.shape
     f = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
         dsptpu_torch.Lowpass(0.2), dsptpu_torch.Butterworth(8)))
-    ss = _blockss(*_stack_cascade(f.sos_array(), f.g))
+    ss = _cascade_ss(f.sos_array(), f.g)       # as filtfilt builds it
     pad = 6 * len(f.biquads)
     m = (n // 128) * 128
     log(f"path B: x ({n}, {C}) float32, {len(f.biquads)} sections "
@@ -570,7 +629,7 @@ def path_b(dev):
         raise AssertionError("path B: shapes or non-finite output")
     e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
     log(f"path B end to end: {e2e:.3f} ms (median of 5)")
-    profile_main_path(forward, x, e2e, "path B")
+    profile_main_path(forward, x, e2e, counts, "path B")
     y64, (a64, e64) = forward(x.double())
     compare("biir_reverse", y, y64, "path B filtfilt vs float64")
     compare("levinson", a, a64, "path B lpc a vs float64")
@@ -796,7 +855,7 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
         log(f"  {r}: reset + filt "
             f"{time_ms(lambda: f.reset().filt(xs), reps=5):.3f} ms "
             "(median of 5)")
-    profile_main_path(forward, x, e2e, "path C")
+    profile_main_path(forward, x, e2e, counts, "path C")
     rows[0]["launches"] = rows[1]["launches"] = counts["pfb2"]
     rows[2]["launches"] = counts["arbd"]
     return counts, rows
@@ -872,7 +931,7 @@ def path_d(dev, n=1_000_000, coh_n=16384):
                              f"{tuple(coh.shape)} or non-finite output")
     e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
     log(f"path D end to end: {e2e:.3f} ms (median of 5)")
-    profile_main_path(forward, x, e2e, "path D")
+    profile_main_path(forward, x, e2e, counts, "path D")
     # against float64 on the card (the float64 spectrogram takes
     # torch.fft): relative to the largest bin, and per bin over the bins
     # within 40 dB of it; the coherence lies in [0, 1], so its bound is
@@ -957,7 +1016,7 @@ def main():
     import dsptpu_torch
     from dsptpu_torch import kernels
     from dsptpu_torch.kernels import _build, biir, fir, stft
-    from dsptpu_torch.filters.filt import _blockss, _stack_cascade
+    from dsptpu_torch.filters.filt import _cascade_ss
     from dsptpu_torch.ops.periodograms import _psd_weights
     from dsptpu_torch.pipeline import chain_params
     from dsptpu_torch.utils.device import check_full_f32, no_tf32
@@ -979,13 +1038,23 @@ def main():
     paths = _build.build_all()
     log(f"build: {time.time() - t0:.1f} s, "
         f"{os.path.dirname(paths['fir'])}")
+    framed = []
     for name in _build.SOURCES:
         logf = os.path.join(os.path.dirname(paths[name]), f"{name}.log")
         if os.path.exists(logf):
+            entry = ""
             for line in open(logf):
+                if "Compiling entry" in line:
+                    entry = line.split("'")[1] if "'" in line else line
                 if ("registers" in line or "spill" in line.lower()
-                        or (name == "stft" and "Compiling entry" in line)):
+                        or (name in ("stft", "osconv", "biir")
+                            and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
+                if ("bytes stack frame" in line and not
+                        line.strip().startswith("0 bytes stack frame")):
+                    framed.append(f"{name}:{entry}")
+    log(f"build: kernels with a stack frame (register arrays in local "
+        f"memory): {framed if framed else 'none'}")
     log("kernels to build and check: " + ", ".join(_build.SOURCES))
 
     # 3. each kernel against its plain version, small ragged shapes
@@ -1021,7 +1090,7 @@ def main():
     report(rows[-1])
     del xc
 
-    ss = _blockss(*_stack_cascade(sos_np.astype(np.float64), 1.0))
+    ss = _cascade_ss(sos_np.astype(np.float64), 1.0)   # as sosfilt builds it
     z0 = torch.zeros((ss.p, C), device=dev)
     y2 = biir.blockss_filt(ss, y1, z0)
     err = compare("biir", y2, biir.blockss_reference(ss, y1, z0),
@@ -1107,7 +1176,7 @@ def main():
         raise AssertionError("non-finite output")
     e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
     log(f"main path end to end: {e2e:.3f} ms (median of 5)")
-    profile_main_path(forward, x, e2e)
+    profile_main_path(forward, x, e2e, counts)
     # Against the same chain in float64: relative to the largest bin, and
     # per bin over the bins within 40 dB of it. Further down the stopband
     # the float32 signal's own rounding (about 1e-7 of the passband's

@@ -20,7 +20,14 @@
 //                state, writing z_{b-1} over U_b in place (and the state
 //                after row `brow` when the caller needs it);
 //   5. output:   Y = F X + G z_{b-1}, a 128-tap FIR truncated at each
-//                row start plus the state term.
+//                row start plus the state term; or, for a stacked SOS
+//                cascade (the wrapper passes its sections), the cascade
+//                itself run per (row, channel) from z_{b-1}, whose rows
+//                2k, 2k+1 are section k's DF2T state (s1, s2):
+//                  y_k = b0 u + s1;  s1 <- s2 + b1 u - a1 y_k;
+//                  s2 <- b2 u - a2 y_k;  u <- y_k;  output g u,
+//                5 multiply-adds per section per sample against F's ~64
+//                plus G's p (20 against 72 at 4 sections).
 // All tables are built in float64 on the host and cast to float32.
 //
 // Reverse (the anti-causal pass rev(apply(rev(x))), z0 entering after the
@@ -36,10 +43,12 @@
 // no table and no copy of the data is flipped.
 //
 // Bound on an H100: 8 bytes of HBM traffic per sample.  The cascade
-// needs 5 multiply-adds per section per sample; this block form spends
-// ~64 for F (triangular) and 2p for K and G, whose time on the CUDA
-// cores about equals the bytes'.  x is read twice (steps 1 and 5); the scan moves only
-// p floats per row.  Step 5 uses the register-window scheme of fir.cu.
+// needs 5 multiply-adds per section per sample; the block form's step 5
+// spends ~64 for F (triangular) and p for G, whose time on the CUDA
+// cores about equals the bytes' (the SOS stage's cascade does not).  x is
+// read twice (steps 1 and 5); the scan moves only p floats per row.  The
+// F stage uses the register-window scheme of fir.cu; the SOS stage reads
+// x once per (row, channel), a warp's lanes on neighbouring channels.
 
 #include <cuda_runtime.h>
 
@@ -243,11 +252,66 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
     }
 }
 
+// The SOS output stage: Y for a stacked cascade of nsec <= P/2 sections,
+// sec = (b0, b1, b2, a1, a2) per section, then the gain g; one thread per
+// (row b, channel c) from the entering state Z[b].
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+sos_output_kernel(const float* __restrict__ x, const float* __restrict__ sec,
+                  const float* __restrict__ Z, float* __restrict__ y,
+                  long long n, long long tbase, int C, int B, int nsec,
+                  int cw) {
+    constexpr int NS = P / 2;
+    constexpr int U = 16;                  // samples loaded ahead
+    __shared__ float cs[5 * NS + 1];
+    for (int i = threadIdx.x; i <= 5 * nsec; i += kThreads) cs[i] = sec[i];
+    __syncthreads();
+    const int cl = threadIdx.x & (cw - 1);
+    const int rl = threadIdx.x / cw;
+    const long long b = (long long)blockIdx.x * (kThreads / cw) + rl;
+    const int c = blockIdx.y * cw + cl;
+    if (b >= B || c >= C) return;
+    float s1[NS], s2[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+        s1[k] = k < nsec ? Z[(b * P + 2 * k) * C + c] : 0.f;
+        s2[k] = k < nsec ? Z[(b * P + 2 * k + 1) * C + c] : 0.f;
+    }
+    const float g = cs[5 * nsec];
+    const long long t0 = b * V;
+    const int len = n - t0 < V ? (int)(n - t0) : V;
+    for (int v0 = 0; v0 < len; v0 += U) {
+        float u[U];
+#pragma unroll
+        for (int i = 0; i < U; ++i)
+            u[i] = v0 + i < len ? x[row_of(t0 + v0 + i, tbase) * C + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+            float w = u[i];
+#pragma unroll
+            for (int k = 0; k < NS; ++k) {
+                if (k < nsec) {
+                    const float* q = cs + 5 * k;
+                    const float yk = fmaf(q[0], w, s1[k]);
+                    s1[k] = fmaf(q[1], w, fmaf(-q[3], yk, s2[k]));
+                    s2[k] = fmaf(q[2], w, -q[4] * yk);
+                    w = yk;
+                }
+            }
+            u[i] = g * w;
+        }
+#pragma unroll
+        for (int i = 0; i < U; ++i)
+            if (v0 + i < len) y[row_of(t0 + v0 + i, tbase) * C + c] = u[i];
+    }
+}
+
 template <int P>
 int run(const float* x, const float* h, const float* kt, const float* gt,
         const float* av, const float* avl, const float* z0, float* y,
         float* U, float* E, float* zin, float* zrow, long long n,
-        long long tbase, int C, int L, int brow, cudaStream_t st) {
+        long long tbase, int C, int L, int brow, const float* sec, int nsec,
+        cudaStream_t st) {
     const int B = (int)((n + V - 1) / V);
     const int nchunks = (B + L - 1) / L;
     int cw = 1;
@@ -265,6 +329,13 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
                                                   nchunks);
     scan_kernel<P><<<sblocks, kThreads, 0, st>>>(U, av, zin, E, zrow, C, B,
                                                  L, nchunks, brow);
+    if (nsec > 0) {
+        if (nsec > P / 2) return cudaErrorInvalidValue;
+        sos_output_kernel<P><<<dim3((B + rows_per_block - 1) / rows_per_block,
+                                    cgroups), kThreads, 0, st>>>(
+            x, sec, U, y, n, tbase, C, B, nsec, cw);
+        return cudaGetLastError();
+    }
     int tt = (kThreads / cw) * R;
     if (tt < 512) tt = 512;
     const int rb = tt / V;
@@ -292,12 +363,14 @@ const char* dsptpu_error_string(int err) {
 // samples tbase, tbase - 1, ..., tbase - n + 1 of x and y.  h: (V,);
 // kt, gt: (V, P); av, avl: (P, P); z0: (P, C); scratch U: (B, P, C);
 // E, zin: (nchunks, P, C); zrow: (P, C) or null (with brow = -1).  P is
-// 8, 16 or 32 (tables zero-padded).
+// 8, 16 or 32 (tables zero-padded).  nsec > 0: the system is a stacked
+// cascade of nsec sections, sec (5 nsec + 1,) their (b0, b1, b2, a1, a2)
+// and the gain, and the SOS stage replaces the F stage (h unused).
 int dsptpu_biir(const void* x, const void* h, const void* kt, const void* gt,
                 const void* av, const void* avl, const void* z0, void* y,
                 void* U, void* E, void* zin, void* zrow, long long n,
                 long long tbase, int C, int P, int L, int brow,
-                void* stream) {
+                const void* sec, int nsec, void* stream) {
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto m = [](void* p) { return static_cast<float*>(p); };
     auto st = static_cast<cudaStream_t>(stream);
@@ -305,15 +378,15 @@ int dsptpu_biir(const void* x, const void* h, const void* kt, const void* gt,
         case 8:
             return run<8>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
                           m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                          brow, st);
+                          brow, f(sec), nsec, st);
         case 16:
             return run<16>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
                            m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                           brow, st);
+                           brow, f(sec), nsec, st);
         case 32:
             return run<32>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
                            m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                           brow, st);
+                           brow, f(sec), nsec, st);
         default:
             return cudaErrorInvalidValue;
     }

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops import dspbase
 from ..ops.dspbase import _as_1d, _flatten_channels, _float_type
-from ..utils.device import as_tensor
+from ..utils.device import as_tensor, full_f32
 from .coefficients import (PolynomialRatio, Biquad, SecondOrderSections,
                            ZeroPoleGain, as_sos, coefb, coefa)
 
@@ -42,6 +42,7 @@ __all__ = ["filt", "sosfilt", "sos_arrays", "DF2TFilter", "filtfilt",
 # parallel affine linear recurrence
 # ---------------------------------------------------------------------------
 
+@full_f32()
 def _affine_scan(M, u, z0):
     """Solve z_t = M @ z_{t-1} + u_t, t = 1..n, as a log-depth scan
     (doubling: after step s, Z[t] holds the sum over the last 2^s
@@ -96,6 +97,7 @@ def _const(a, like):
     return torch.as_tensor(a, device=like.device).to(like.dtype)
 
 
+@full_f32()
 def _affine_rec(A_np, U, z0):
     """Solve z_b = A z_{b-1} + U_b, b = 0..B-1, z_{-1} = z0.
 
@@ -141,11 +143,15 @@ _blockss_tables_cache = {}
 class _BlockSS:
     """Host-precomputed block state-space tables of one LTI system
     y_t = d x_t + w'z_{t-1}; z_t = A z_{t-1} + c x_t, blocked over V
-    samples. All float64 numpy; see _blockss_apply."""
+    samples. All float64 numpy; see _blockss_apply. `sections`: for a
+    stacked SOS cascade (_cascade_ss), its (nsec, 5) [b0 b1 b2 a1 a2]
+    rows and gain g, which K2's output stage runs per row instead of F;
+    None for any other system."""
 
-    __slots__ = ("V", "p", "A", "c", "F", "G", "K", "AV", "powers")
+    __slots__ = ("V", "p", "A", "c", "F", "G", "K", "AV", "powers",
+                 "sections")
 
-    def __init__(self, A, c, w, d, V):
+    def __init__(self, A, c, w, d, V, sections=None):
         p = A.shape[0]
         powers = np.empty((V + 1, p, p))
         powers[0] = np.eye(p)
@@ -165,13 +171,16 @@ class _BlockSS:
         self.A, self.c = A, c
         self.F, self.G, self.K, self.AV = F, G, K, powers[V]
         self.powers = powers
+        self.sections = sections
 
 
-def _blockss(A, c, w, d):
-    key = (A.tobytes(), c.tobytes(), w.tobytes(), float(d), A.shape[0])
+def _blockss(A, c, w, d, sections=None):
+    key = (A.tobytes(), c.tobytes(), w.tobytes(), float(d), A.shape[0],
+           None if sections is None
+           else (sections[0].tobytes(), float(sections[1])))
     hit = _blockss_tables_cache.get(key)
     if hit is None:
-        hit = _BlockSS(A, c, w, d, _BLOCKSS_V)
+        hit = _BlockSS(A, c, w, d, _BLOCKSS_V, sections)
         if len(_blockss_tables_cache) > 256:
             _blockss_tables_cache.clear()
         _blockss_tables_cache[key] = hit
@@ -185,6 +194,7 @@ def _kernel_iir_ok(ss, n, dtype):
     return biir_supported(ss, dtype) and n >= 4 * ss.V
 
 
+@full_f32()
 def _blockss_apply(ss, x, z0, need_state=True, reverse=False):
     """Apply the block state-space system over x (n, C) with initial
     state z0 (p, C); returns (y (n, C), z_final (p, C) or None).
@@ -284,6 +294,14 @@ def _stack_cascade(sos, g=1.0):
     return A, cvec, g * wk, g * dk
 
 
+def _cascade_ss(sos, g=1.0):
+    """The block state-space tables of a biquad cascade with gain g
+    (_stack_cascade), carrying its sections for K2's SOS output stage."""
+    sos = np.ascontiguousarray(sos, dtype=np.float64).reshape(-1, 5)
+    return _blockss(*_stack_cascade(sos, float(g)),
+                    sections=(sos, float(g)))
+
+
 def _affine_apply(bp, ap, x, z0):
     """Transposed DF-II of a normalized (a[0]==1) filter over x (n, C)
     with initial state z0 (p, C); returns (y, z_final). bp/ap are host
@@ -314,8 +332,7 @@ def _sosfilt(sos, g, x, si, need_state=True):
     flat, restore = _flatten_channels(x)
     flat = flat.to(_float_type(flat.dtype))
     nsec = sos.shape[0]
-    ss = _blockss(*_stack_cascade(np.asarray(sos, dtype=np.float64),
-                                  float(g)))
+    ss = _cascade_ss(sos, g)
     # stacked state rows ordered (z1_0, z2_0, z1_1, ...) <-> si (2, nsec, C)
     z0 = si.reshape(2, nsec, -1).to(flat.dtype)
     z0 = z0.transpose(0, 1).reshape(2 * nsec, -1)
@@ -561,7 +578,7 @@ def _filtfilt_sos(f, x, pad=None):
     flat, restore = _flatten_channels(x)
     n = flat.shape[0]
     # stacked-state rows ordered (z1_0, z2_0, z1_1, ...) as in _sosfilt
-    ss = _blockss(*_stack_cascade(np.asarray(sos, np.float64), float(g)))
+    ss = _cascade_ss(sos, g)
     zi_np = np.swapaxes(filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec)
     if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
         return restore(_filtfilt_kernel(ss, zi_np, flat, pad, n))
@@ -632,6 +649,7 @@ def _ff_dev_tables(ss, zst_np, pad, q, tl, device):
     return hit
 
 
+@full_f32()
 def _filtfilt_kernel(ss, zst_np, x, pad, n):
     """filtfilt through K2 (dsptpu's _filtfilt_pallas_v2 arithmetic),
     x (n, C) float32, n >= 4*128 + pad:

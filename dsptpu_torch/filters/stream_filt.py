@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from .design import resample_filter
 from ..kernels import arbd as _arbd
 from ..kernels import pfb2 as _pfb2
-from ..utils.device import as_tensor
+from ..utils.device import as_tensor, full_f32
 
 __all__ = ["FIRFilter", "taps2pfb", "outputlength", "inputlength",
            "resample", "polyphase_filt", "timedelay"]
@@ -87,6 +87,7 @@ def _tap_dtype(h_dtype, x_dtype):
     return x_dtype
 
 
+@full_f32()
 def _block_matmul(xcat, G, s0, B, M, W, out_len):
     """Block-polyphase filtering as a regular matmul.
 

@@ -15,9 +15,12 @@ passes.
 Bound on an H100: 8 bytes per sample of HBM traffic. The cascade
 itself needs 5 multiply-adds per section per sample, far less; the
 block form spends ~64 + 2p per sample, whose time on the CUDA cores
-about equals the bytes'. The TPU kernel carries the state across a sequential
-grid; the CUDA kernel turns that carry into a chunked scan
-(csrc/biir.cu).
+about equals the bytes'. The TPU kernel carries the state across a
+sequential grid; the CUDA kernel turns that carry into a chunked scan
+(csrc/biir.cu). For a stacked SOS cascade (a system built by
+filters.filt._cascade_ss, which carries its sections) the output stage
+runs the cascade itself per (row, channel) from the row's entering
+state instead of the 128-tap product F.
 
 `blockss_filt` launches the kernel for a CUDA tensor and runs
 `blockss_reference`, the plain PyTorch version of the same arithmetic,
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils.device import full_f32
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
            "launches"]
@@ -38,9 +42,9 @@ __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
 launches = {"biir": 0, "biir_reverse": 0}
 
 # dsptpu_biir(x, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, tbase,
-#             C, P, L, brow, stream)
+#             C, P, L, brow, sec, nsec, stream)
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2 + [
-    ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 _V = 128
 _CHUNK = 32        # rows per scan chunk (the carry pass walks n/(128*32))
@@ -60,9 +64,13 @@ def _tables(ss, device):
     """float64 host tables cast to float32, as dsptpu's _dev_tables
     builds them (forward direction), on `device`: h (V,) = F[:, 0] (F is
     Toeplitz in h), Kt = K' (V, P), Gt = G (V, P), AV (P, P) and
-    AV^_CHUNK (P, P), zero-padded from p to P in {8, 16, 32}."""
+    AV^_CHUNK (P, P), zero-padded from p to P in {8, 16, 32}; then, for
+    a system that carries its sections, their rows [b0 b1 b2 a1 a2] and
+    the gain as one (5 nsec + 1,) vector (else None)."""
+    sec = ss.sections
     key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(),
-           ss.AV.tobytes(), str(device))
+           ss.AV.tobytes(), str(device),
+           None if sec is None else (sec[0].tobytes(), sec[1]))
     hit = _tab_cache.get(key)
     if hit is None:
         P = _padded_p(ss.p)
@@ -75,14 +83,19 @@ def _tables(ss, device):
         host = (ss.F[:, 0], pad(ss.K.T, (_V, P)), pad(ss.G, (_V, P)),
                 pad(ss.AV, (P, P)),
                 pad(np.linalg.matrix_power(ss.AV, _CHUNK), (P, P)))
+        if sec is not None:
+            host += (np.append(sec[0].reshape(-1), sec[1]),)
         hit = tuple(torch.as_tensor(t.astype(np.float32), device=device)
                     for t in host)
+        if sec is None:
+            hit += (None,)
         if len(_tab_cache) > 128:
             _tab_cache.clear()
         _tab_cache[key] = hit
     return hit
 
 
+@full_f32()
 def _advance_tail(ss, zrow, x, n):
     """State after the true last sample from the state after the last
     complete row: z = A^m z_row + sum_j A^{m-1-j} c x_tail[j] (the host
@@ -122,7 +135,7 @@ def blockss_reference(ss, x, z0, need_state=False, reverse=False,
         return blockss_reference(ss, x[:N].flip(0), z0).flip(0)
     n, C = x.shape
     p = ss.p
-    _, kt, gt, av, avl = _tables(ss, x.device)
+    _, kt, gt, av, avl, _ = _tables(ss, x.device)
     L = _CHUNK
     F = torch.as_tensor(ss.F.astype(np.float32), device=x.device)
     B = -(-n // _V)
@@ -180,7 +193,7 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     P = _padded_p(p)
     L = _CHUNK
     dev = xc.device
-    h, kt, gt, av, avl = _tables(ss, dev)
+    h, kt, gt, av, avl, sec = _tables(ss, dev)
     z0p = torch.zeros((P, C), dtype=torch.float32, device=dev)
     z0p[:p] = z0.to(device=dev, dtype=torch.float32)
     B = -(-n // _V)
@@ -197,7 +210,10 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
             av.data_ptr(), avl.data_ptr(), z0p.data_ptr(), y.data_ptr(),
             U.data_ptr(), E.data_ptr(), zin.data_ptr(),
             zrow.data_ptr() if need_state else None, n,
-            n - 1 if reverse else -1, C, P, L, brow, _build.stream_of(xc))
+            n - 1 if reverse else -1, C, P, L, brow,
+            None if sec is None else sec.data_ptr(),
+            0 if sec is None else ss.sections[0].shape[0],
+            _build.stream_of(xc))
     _build.check("biir", err, "biir kernel launch")
     launches["biir"] += 1
     launches["biir_reverse"] += bool(reverse)

@@ -13,10 +13,12 @@ Bound on an H100: the bytes, 4 per input and 4 per output sample
 (8 n C in all, 0.38 ms for 10,000,000 x 16). The arithmetic a real FFT
 pair and the spectrum product need per frame (about 5 nfft log2 nfft
 + 6 nfft flops per L outputs) is about 60% of that time on the CUDA
-cores. The kernel keeps each frame in shared memory between the
-forward transform, the product and the inverse transform, so each
-sample crosses device memory about nfft / L times on the way in and
-once on the way out: see the design note at the top of csrc/osconv.cu.
+cores. The kernel keeps each frame in registers between the forward
+transform, the product and the inverse transform (a mixed-radix FFT of
+R points per thread, 2-4 exchanges through shared memory per frame), so
+each sample crosses device memory about nfft / L times on the way in
+and once on the way out: see the design note at the top of
+csrc/osconv.cu.
 
 `osconv` launches the kernel for a CUDA tensor and runs
 `osconv_reference`, the plain PyTorch version (the same blocks through
@@ -96,7 +98,8 @@ def _tables(nfft, device):
     """(wn, tw2) float32 twiddles built in float64 on the host:
     wn[e] = exp(-2 pi i e / nfft), e < nfft (the odd radix stage), and
     tw2[j] = exp(-2 pi i j / M), j < M/2, with M the largest power of
-    two dividing nfft (the radix-2 stages). As (., 2) re/im pairs."""
+    two dividing nfft (the passes' twiddle anchors and the in-register
+    DFTs' roots). As (., 2) re/im pairs."""
     key = (nfft, str(device))
     hit = _tab_cache.get(key)
     if hit is None:
@@ -110,18 +113,41 @@ def _tables(nfft, device):
     return hit
 
 
+def _geometry(M):
+    """The kernel's plan of an M-point transform (csrc/osconv.cu,
+    `Plan<M>`): R points per thread (T = M / R threads per transform), G
+    transforms per block, and the radices of the passes, R for each but
+    the last, whose radix r = M / R^(passes - 1) divides R."""
+    R = 16 if M <= 256 else 32
+    T = M // R
+    G = max(1, 256 // T)
+    radices, rem = [], M
+    while rem > R:
+        radices.append(R)
+        rem //= R
+    radices.append(rem)
+    return R, G, radices
+
+
 def _perm(nfft):
-    """Index of the spectrum bin the kernel holds at each position after
-    its forward transform: position k1*M + r holds bin k1 + m*bitrev(r)
-    (m = nfft / M odd, bitrev over log2 M bits)."""
+    """Bin of the spectrum at each slot of the kernel's table: slot
+    c*M + i*T + t holds what thread t has in register i after its
+    forward transform of sub-block c, i.e. position p = t*R + i of the
+    decimation-in-frequency output, bin c + m*b(p) with b(p) the
+    mixed-radix digit reversal of p (m = nfft / M odd)."""
     M = nfft & -nfft
     m = nfft // M
-    bits = M.bit_length() - 1
-    r = np.arange(M)
-    rev = np.zeros(M, dtype=np.int64)
-    for b in range(bits):
-        rev |= ((r >> b) & 1) << (bits - 1 - b)
-    return (np.arange(m)[:, None] + m * rev[None, :]).reshape(-1)
+    R, _, radices = _geometry(M)
+    T = M // R
+    q = np.arange(M)
+    p = (q % T) * R + q // T
+    b = np.zeros(M, dtype=np.int64)
+    stride, weight = M, 1
+    for r in radices:
+        stride //= r
+        b += ((p // stride) % r) * weight
+        weight *= r
+    return (np.arange(m)[:, None] + m * b[None, :]).reshape(-1)
 
 
 def _spectrum(v, nfft):

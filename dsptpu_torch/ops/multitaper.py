@@ -28,7 +28,7 @@ import torch
 from .periodograms import (Periodogram, Spectrogram, WelchConfig,
                            _num_segments, _stft_kernel_ok, arraysplit)
 from .windows import dpss, dpsseig
-from ..utils.device import as_tensor, check_full_f32, resolve_device
+from ..utils.device import as_tensor, full_f32, resolve_device
 from ..utils.fftutil import nextfastfft
 
 __all__ = ["allocate_output",
@@ -412,10 +412,9 @@ def mt_cross_power_spectra(signal, fs=1.0, demean=False, freq_range=None,
     idx, freqs = _freq_mask(config.freq, freq_range)
     if not isinstance(idx, slice):
         F = F[:, :, torch.as_tensor(idx, device=F.device)]
-    if F.device.type == "cuda":
-        check_full_f32()
     # S^{lm}(f) = sum_k w_k J_k^l(f) conj(J_k^m(f))
-    out = torch.einsum("lkf,mkf->lmf", F * w[:, None], F.conj())
+    with full_f32():
+        out = torch.einsum("lkf,mkf->lmf", F * w[:, None], F.conj())
     return CrossPowerSpectra(out, freqs)
 
 

@@ -5,10 +5,13 @@ scalar goes to the `device` the caller names, "cuda" by default; if
 CUDA is absent that raises, so nothing runs on the CPU by accident.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "resolve_device", "no_tf32", "check_full_f32"]
+__all__ = ["as_tensor", "resolve_device", "no_tf32", "full_f32",
+           "check_full_f32"]
 
 
 def resolve_device(device=None):
@@ -32,6 +35,26 @@ def no_tf32():
     cd = torch.backends.cudnn
     return cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
                     deterministic=cd.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Context (or decorator) for float32 matrix products: turns
+    torch.backends.cuda.matmul.allow_tf32 off and restores the caller's
+    value on exit, also on an exception. dsptpu pins these products to
+    Precision.HIGHEST whatever the global setting; TF32 keeps ~3 digits."""
+    mm = torch.backends.cuda.matmul
+    try:
+        name, prev, off = "allow_tf32", mm.allow_tf32, False
+    except RuntimeError:
+        # the caller set TF32 through the newer per-backend API, which
+        # refuses a read of the legacy flag: use that API instead
+        name, prev, off = "fp32_precision", mm.fp32_precision, "ieee"
+    setattr(mm, name, off)
+    try:
+        yield
+    finally:
+        setattr(mm, name, prev)
 
 
 def check_full_f32():

@@ -22,7 +22,7 @@ from dsptpu.filters.filt import (_blockss as jax_blockss,
 from dsptpu.kernels.biir import blockss_filt_pallas
 from dsptpu_torch.convert import (sos_from_numpy, state_from_numpy,
                                   zpk_from_numpy)
-from dsptpu_torch.filters.filt import _blockss, _stack_cascade
+from dsptpu_torch.filters.filt import _blockss, _cascade_ss, _stack_cascade
 from dsptpu_torch.kernels import biir as tbiir
 
 TOL = {np.float64: 1e-10, np.float32: 1e-4}
@@ -178,3 +178,94 @@ def test_k2_reverse_not_ported():
                                  n_eff=n_eff)
         check(got, want, 1e-4)
     assert tbiir.launches["biir"] == 0
+
+
+def _emulate_sos_rows(ss, x, z0, reverse=False, n_eff=None):
+    """K2's SOS output stage (csrc/biir.cu:sos_output_kernel) in numpy
+    float64, next to the block form it replaces, over the same row
+    states: z_{b-1} by the block recursion z_b = AV z_{b-1} + K X_b, then
+    per row (all rows and channels at once) the cascade from z_{b-1}
+    (section k's DF2T state at rows 2k, 2k+1), y_k = b0 u + s1,
+    s1 <- s2 + b1 u - a1 y_k, s2 <- b2 u - a2 y_k, u <- y_k, output g u.
+    reverse runs in virtual time (the first n_eff samples, reversed).
+    Returns (cascade, block form F X_b + G z_{b-1}), (n, C) each."""
+    sos, g = ss.sections
+    if reverse:
+        x = x[: x.shape[0] if n_eff is None else n_eff][::-1]
+    n, C = x.shape
+    V, B = ss.V, -(-n // ss.V)
+    X = np.zeros((B, V, C))
+    X.reshape(B * V, C)[:n] = x
+    Z = np.empty((B, ss.p, C))
+    z = z0
+    for b in range(B):
+        Z[b] = z
+        z = ss.AV @ z + ss.K @ X[b]
+    block = np.einsum("vu,buc->bvc", ss.F, X) + np.einsum("va,bac->bvc",
+                                                          ss.G, Z)
+    s = Z.reshape(B, len(sos), 2, C).copy()
+    casc = np.empty_like(X)
+    for v in range(V):
+        u = X[:, v]
+        for k, (b0, b1, b2, a1, a2) in enumerate(sos):
+            yk = b0 * u + s[:, k, 0]
+            s[:, k, 0] = s[:, k, 1] + b1 * u - a1 * yk
+            s[:, k, 1] = b2 * u - a2 * yk
+            u = yk
+        casc[:, v] = g * u
+    return (casc.reshape(B * V, C)[:n], block.reshape(B * V, C)[:n])
+
+
+@pytest.mark.parametrize("order", [2, 8, 32])
+@pytest.mark.parametrize("mode", ["forward", "reverse", "n_eff"])
+def test_k2_sos_stage_arithmetic_is_block_form(order, mode):
+    """The per-row cascade from the block states equals the block form
+    F X + G z for 1, 4 and 16 sections with a gain other than 1, in each
+    of K2's directions."""
+    sos = butter_sos(order, 0.3)
+    tss = _cascade_ss(sos.sos_array(), 1.7 * sos.g)
+    assert len(tss.sections[0]) == order // 2
+    rng = np.random.default_rng(order)
+    n, C = 1100, 3
+    x = rng.standard_normal((n, C))
+    z0 = rng.standard_normal((tss.p, C))
+    casc, block = _emulate_sos_rows(tss, x, z0, reverse=mode != "forward",
+                                    n_eff=1024 if mode == "n_eff" else None)
+    check(casc, block, 1e-10)
+
+
+def test_cascade_ss_carries_its_sections():
+    """sosfilt's and filtfilt's systems carry their sections and gain for
+    K2's SOS stage, keyed apart from the same tables without them; other
+    systems carry none."""
+    from dsptpu_torch.filters.filt import _single_ss
+    sos = butter_sos(8, 0.2)
+    arr, g = sos.sos_array(), sos.g
+    tss = _cascade_ss(arr, g)
+    assert np.array_equal(tss.sections[0], arr) and tss.sections[1] == g
+    assert _cascade_ss(arr, g) is tss
+    plain = _blockss(*_stack_cascade(arr, g))
+    assert plain.sections is None and plain is not tss
+    assert np.array_equal(plain.F, tss.F)
+    assert _cascade_ss(arr, 2 * g) is not tss
+    assert _blockss(*_single_ss([0.2, 0.1], [1.0, -0.5])).sections is None
+    host = tbiir._tables(tss, "cpu")[5].numpy()
+    assert np.allclose(host, np.append(arr.reshape(-1), g), rtol=1e-7)
+    assert tbiir._tables(plain, "cpu")[5] is None
+
+
+@pytest.mark.parametrize("n,C,reverse", [(2053, 2, False), (1100, 3, True)])
+def test_k2_plain_of_cascade_ss_matches_pallas_interpret(n, C, reverse):
+    """A system that carries its sections gives the same plain pass as
+    dsptpu's Pallas kernel, forward and reverse."""
+    sos = butter_sos(8, 0.3)
+    arr, g = sos.sos_array(), sos.g
+    jss, tss = jax_blockss(*jax_stack(arr, g)), _cascade_ss(arr, g)
+    rng = np.random.default_rng(n + C)
+    x = rng.standard_normal((n, C)).astype(np.float32)
+    z0 = rng.standard_normal((tss.p, C)).astype(np.float32)
+    want = blockss_filt_pallas(jss, jnp.asarray(x), jnp.asarray(z0), TB=4,
+                               interpret=True, reverse=reverse)
+    got = tbiir.blockss_filt(tss, torch.as_tensor(x), torch.as_tensor(z0),
+                             reverse=reverse)
+    check(got, want, 1e-4)

@@ -202,87 +202,124 @@ def test_k4_gate_is_dsptpus(nfft, nv, ok):
     assert not tos.osconv_supported(nfft, nv, torch.float64)
 
 
-@pytest.mark.parametrize("nfft", [256, 384, 640, 1920])
+# one nfft per M template of csrc/osconv.cu (M = 128 ... 16384; M = 128
+# only with an odd factor) and odd-m sizes (m = 3, 5, 15, 127)
+K4_SIZES = [384, 256, 512, 1024, 2048, 4096, 8192, 16384, 640, 1920,
+            16256]
+
+
+@pytest.mark.parametrize("nfft", K4_SIZES)
 def test_k4_bin_order_covers_every_bin(nfft):
-    """The kernel's spectrum order (position k1*M + r holds bin
-    k1 + m*bitrev(r)) is a permutation of the nfft bins."""
+    """The kernel's spectrum table order (slot c*M + i*T + t: register i
+    of thread t after the forward transform of sub-block c) is a
+    permutation of the nfft bins."""
     perm = tos._perm(nfft)
     assert sorted(perm.tolist()) == list(range(nfft))
 
 
+def _reg_dft(a, roots, inverse=False):
+    """The kernel's in-register DFT along the last axis (N points, a
+    power of two): bit reversal, then radix-2 decimation-in-time stages
+    with the roots W_N^j = roots[j R / N] (roots[e] = W_R^e, constants
+    in the kernel's code); the inverse as conj(dft(conj(a)))."""
+    if inverse:
+        return np.conj(_reg_dft(np.conj(a), roots))
+    N = a.shape[-1]
+    bits = N.bit_length() - 1
+    rev = [int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+           for i in range(N)]
+    a = a[..., rev].copy()
+    step = len(roots) * 2 // N       # roots holds W_Rmax^j, j < Rmax/2
+    ln = 2
+    while ln <= N:
+        for i in range(0, N, ln):
+            for j in range(ln // 2):
+                w = roots[j * step * (N // ln)]
+                u, v = a[..., i + j].copy(), a[..., i + j + ln // 2] * w
+                a[..., i + j], a[..., i + j + ln // 2] = u + v, u - v
+        ln *= 2
+    return a
+
+
 def _emulate_k4_frame(z, v, nfft):
     """The arithmetic of csrc/osconv.cu on one complex frame, in numpy
-    float64 (each pass vectorized): odd radix-m stage folded into the
-    load, decimation in frequency two radix-2 stages at a time, product
-    with the spectrum in the kernel's bin order, decimation in time two
-    stages at a time, the inverse radix-m stage folded into the store."""
+    float64, the T threads of one transform as the rows of a (T, R)
+    register array: nfft = m M with m odd; per sub-block c < m the
+    radix-m stage folded into the load, P passes of a mixed-radix
+    decimation in frequency (R-point DFTs in registers, twiddles from the
+    two anchors W^lo and W^(A lo) by chained products, an exchange
+    through the padded shared layout between passes), the product with
+    the spectrum in the table order of _perm, the mirrored inverse from
+    the same registers, and the inverse radix-m stage folded into the
+    store."""
     N = nfft
     M = N & -N
-    m, logM, hM = N // M, M.bit_length() - 1, M // 2
+    m = N // M
+    R, _, radices = tos._geometry(M)
+    T, P, A = M // R, len(radices), R // 4
     wn = np.exp(-2j * np.pi * np.arange(N) / N)
-    tw2 = np.exp(-2j * np.pi * np.arange(hM) / M)
-    # per-stage tables: tw[h-1+j] = w_{2h}^j for h < M/2; the first
-    # (h = M/2) stage reads tw2 itself
-    e = np.arange(hM - 1)
-    h_of = 1 << (np.log2(e + 1).astype(int))
-    tw = tw2[(e + 1 - h_of) * (hM // h_of)]
+    tw2 = np.exp(-2j * np.pi * np.arange(M // 2) / M)
+    roots = tw2[:: M // R]                   # W_R^j, j < R/2
+    strides = [M]
+    for r in radices:
+        strides.append(strides[-1] // r)
+    t = np.arange(T)[:, None]
+    n = np.arange(R)[None, :]
 
-    def twid(h, j):
-        return tw2[j] if h == hM else tw[h - 1 + j]
+    def pos(j):
+        """Frame position of register n of thread t in pass j (1-based):
+        the pass's digit varies along n; the last pass holds R
+        consecutive positions (R / r groups of r)."""
+        if j == P:
+            return t * R + n
+        hi, lo = t // strides[j], t % strides[j]
+        return hi * strides[j - 1] + n * strides[j] + lo
 
-    Hp = (np.fft.fft(v, N) / N)[tos._perm(N)]
-    e = np.arange(N)
-    k1, r = e >> logM, e & (M - 1)
-    buf = sum(z[n1 * M + r] * wn[((n1 * M + r) * k1) % N] for n1 in range(m))
-    u = np.arange(N // 4)
-    uu = u & (M // 4 - 1)
+    def twiddle(a, j, inverse):
+        lo = (t % strides[j])[:, 0]
+        e = lo * (M // strides[j - 1])
+        w1, wa = tw2[e], tw2[A * e]
+        pw = np.stack([w1 ** b for b in range(A)], 1)     # products in the
+        pa = np.stack([wa ** q for q in range(R // A)], 1)  # kernel
+        w = pa[:, n[0] // A] * pw[:, n[0] % A]
+        return a * (np.conj(w) if inverse else w)
 
-    def quad(inner, span):
-        j = uu & (inner - 1)
-        return (u >> (logM - 2)) * M + (uu >> (inner.bit_length() - 1)) \
-            * span + j, j
+    def exchange(a, j_from, j_to):
+        buf = np.zeros(M + M // R, complex)
+        pf, pt = pos(j_from), pos(j_to)
+        buf[pf + pf // R] = a
+        return buf[pt + pt // R]
 
-    h = hM
-    while h >= 2:
-        q = h // 2
-        i, j = quad(q, 2 * h)
-        a0, a1, a2, a3 = (buf[i].copy(), buf[i + q].copy(),
-                          buf[i + h].copy(), buf[i + h + q].copy())
-        b0, b1 = a0 + a2, a1 + a3
-        b2, b3 = (a0 - a2) * twid(h, j), (a1 - a3) * twid(h, j + q)
-        buf[i], buf[i + q] = b0 + b1, (b0 - b1) * twid(q, j)
-        buf[i + h], buf[i + h + q] = b2 + b3, (b2 - b3) * twid(q, j)
-        h //= 4
-    b = np.arange(N // 2)
-    if h == 1:
-        i = (b >> (logM - 1)) * M + (b & (hM - 1)) * 2
-        a, c = buf[i].copy(), buf[i + 1].copy()
-        buf[i], buf[i + 1] = a + c, a - c
-    buf = buf * Hp
-    h = 1
-    while 2 * h <= hM:
-        i, j = quad(h, 4 * h)
-        w1 = np.conj(twid(h, j))
-        t = buf[i + h] * w1
-        b0, b1 = buf[i] + t, buf[i] - t
-        t = buf[i + 3 * h] * w1
-        b2, b3 = buf[i + 2 * h] + t, buf[i + 2 * h] - t
-        t = b2 * np.conj(twid(2 * h, j))
-        buf[i], buf[i + 2 * h] = b0 + t, b0 - t
-        t = b3 * np.conj(twid(2 * h, j + h))
-        buf[i + h], buf[i + 3 * h] = b1 + t, b1 - t
-        h *= 4
-    if h == hM:
-        j = b & (hM - 1)
-        i = (b >> (logM - 1)) * M + j
-        a, t = buf[i].copy(), buf[i + hM] * np.conj(twid(hM, j))
-        buf[i], buf[i + hM] = a + t, a - t
+    def last_pass(a, inverse):
+        r = radices[-1]
+        g = a.reshape(T, R // r, r)
+        return _reg_dft(g, roots, inverse).reshape(T, R)
+
+    Hs = (np.fft.fft(v, N) / N)[tos._perm(N)]
+    res = np.zeros(N, complex)
+    for c in range(m):
+        r0 = n * strides[1] + t                    # load layout = pass 1
+        a = sum(z[n1 * M + r0] * wn[((n1 * M + r0) * c) % N]
+                for n1 in range(m))
+        for j in range(1, P):
+            if j > 1:
+                a = exchange(a, j - 1, j)
+            a = twiddle(_reg_dft(a, roots), j, False)
+        if P > 1:
+            a = exchange(a, P - 1, P)
+        a = last_pass(a, False)
+        a = a * Hs[c * M + n * T + t]
+        a = last_pass(a, True)
+        for j in range(P - 1, 0, -1):
+            a = exchange(a, j + 1, j)
+            a = _reg_dft(twiddle(a, j, True), roots, True)
+        res[c * M + r0] = a
     out = np.arange(N)
-    return sum(buf[k * M + (out & (M - 1))] * np.conj(wn[(out * k) % N])
+    return sum(res[k * M + (out & (M - 1))] * np.conj(wn[(out * k) % N])
                for k in range(m))
 
 
-@pytest.mark.parametrize("nfft", [256, 384, 512, 1920])
+@pytest.mark.parametrize("nfft", K4_SIZES)
 def test_k4_kernel_arithmetic_is_circular_convolution(nfft):
     """The kernel's transform pipeline on one frame of two real channels
     (z = x_a + i x_b) gives the circular convolution of each with v."""

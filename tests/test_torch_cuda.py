@@ -21,7 +21,7 @@ import torch
 
 import dsptpu_torch
 from dsptpu_torch import kernels
-from dsptpu_torch.filters.filt import _blockss, _stack_cascade
+from dsptpu_torch.filters.filt import _blockss, _cascade_ss, _stack_cascade
 from dsptpu_torch.kernels import (arbd, biir, fir, levinson, osconv, pfb2,
                                   stft, transpose)
 
@@ -487,3 +487,84 @@ def test_stack_and_transposes_refuse(dev):
         transpose.spectro_permute(torch.zeros(2, 1, 4, 8, 128,
                                               dtype=torch.float64,
                                               device=dev), 3)
+
+
+# one nfft per M template of csrc/osconv.cu (M = 256 ... 16384) and two
+# with an odd factor (384 = 3 x 128, the M = 128 template; 1920 = 15 x 128)
+@pytest.mark.parametrize("C", [1, 15, 16])
+@pytest.mark.parametrize("nfft,nv", [(256, 100), (512, 300), (1024, 897),
+                                     (2048, 1025), (4096, 3585),
+                                     (8192, 4096), (16384, 4096),
+                                     (384, 200), (1920, 500)])
+def test_osconv_templates_match_plain(dev, nfft, nv, C):
+    n = 5 * nfft + 77
+    x, v = randn(dev, n, C, seed=nfft + C), randn(dev, nv, seed=nv)
+    got = launched_once("osconv", lambda: osconv.osconv(x, v, nfft))
+    check(got, osconv.osconv_reference(x, v, nfft, n + nv - 1), 3e-5)
+
+
+@pytest.mark.parametrize("mode", ["forward", "need_state", "reverse",
+                                  "n_eff"])
+@pytest.mark.parametrize("order", [2, 8, 32])
+def test_biir_sos_stage_matches_plain(dev, order, mode):
+    """K2 with the SOS output stage (a system that carries its sections:
+    1, 4 and 16 of them, gain 1.3 g) against the block form's plain
+    version, in each direction."""
+    sos = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.3), dsptpu_torch.Butterworth(order)))
+    ss = _cascade_ss(sos.sos_array(), 1.3 * sos.g)
+    n, C = 70001, 5
+    x, z0 = randn(dev, n, C, seed=order), randn(dev, ss.p, C, seed=n)
+    kw = dict(need_state=mode == "need_state",
+              reverse=mode in ("reverse", "n_eff"),
+              n_eff=(n // 128) * 128 if mode == "n_eff" else None)
+    got = launched_once("biir", lambda: biir.blockss_filt(ss, x, z0, **kw))
+    want = biir.blockss_reference(ss, x, z0, **kw)
+    pairs = zip(got, want) if kw["need_state"] else [(got, want)]
+    for g, w in pairs:
+        check(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_biir_general_stage_matches_plain(dev, reverse):
+    """A general (b, a) system (one 5-state section) keeps the F output
+    stage, and so does a stacked cascade built without its sections."""
+    from dsptpu_torch.filters.filt import _single_ss
+    sos = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.25), dsptpu_torch.Butterworth(6)))
+    for ss in (_blockss(*_single_ss([0.2, 0.1, 0.05, 0.02, 0.01, 0.005],
+                                    [1.0, -0.5, 0.25, -0.1, 0.05, -0.02])),
+               _blockss(*_stack_cascade(sos.sos_array(), sos.g))):
+        assert ss.sections is None
+        x, z0 = randn(dev, 20011, 7, seed=3), randn(dev, ss.p, 7, seed=4)
+        got = launched_once("biir", lambda: biir.blockss_filt(
+            ss, x, z0, reverse=reverse))
+        check(got, biir.blockss_reference(ss, x, z0, reverse=reverse), 1e-4)
+
+
+@pytest.mark.parametrize("call", ["resample_441_640", "filt_127"])
+def test_matmul_routes_keep_full_f32_under_tf32(dev, call):
+    """With the caller's float32 matmul precision at "high" (TF32), the
+    port's matrix-product routes still compute in full float32: the
+    block matmul of resample at 441/640 and of filt with 127 taps at
+    n = 20000, each within 3e-5 of float64; the caller's setting is
+    back after the call."""
+    from fractions import Fraction
+    x = randn(dev, 20000, seed=5)
+    if call == "resample_441_640":
+        def run(s):
+            return dsptpu_torch.resample(s, Fraction(441, 640))
+    else:
+        b = randn(dev, 127, seed=6) / 16
+
+        def run(s):
+            return dsptpu_torch.filt(b.to(s.dtype), s)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = run(x)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    check(got, run(x.double()), 3e-5)

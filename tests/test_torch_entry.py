@@ -152,3 +152,55 @@ def test_path_entries_without_cuda_raise():
                  dsptpu_torch.multitaper_entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+@pytest.mark.parametrize("before", [False, True])
+@pytest.mark.parametrize("how", ["exit", "exception", "decorator"])
+def test_full_f32_restores_allow_tf32(before, how):
+    """full_f32() turns TF32 off for float32 products inside it and gives
+    the caller's allow_tf32 back on exit, also after an exception."""
+    from dsptpu_torch.utils.device import full_f32
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_tf32
+    try:
+        mm.allow_tf32 = before
+        seen = []
+
+        @full_f32()
+        def inner():
+            seen.append(mm.allow_tf32)
+
+        if how == "exit":
+            with full_f32():
+                seen.append(mm.allow_tf32)
+        elif how == "exception":
+            with pytest.raises(ValueError):
+                with full_f32():
+                    seen.append(mm.allow_tf32)
+                    raise ValueError("inside")
+        else:
+            inner()
+            inner()
+        assert seen and not any(seen)
+        assert mm.allow_tf32 == before
+    finally:
+        mm.allow_tf32 = saved
+
+
+def test_full_f32_under_the_per_backend_api():
+    """A caller who set TF32 through torch's per-backend fp32_precision
+    (where the legacy flag cannot be read) gets "ieee" inside full_f32()
+    and their own setting back after it."""
+    from dsptpu_torch.utils.device import full_f32
+    mm = torch.backends.cuda.matmul
+    if not hasattr(torch._C, "_get_fp32_precision_getter"):
+        pytest.skip("this torch has no per-backend fp32_precision")
+    saved = mm.allow_tf32
+    try:
+        mm.fp32_precision = "tf32"
+        with full_f32():
+            assert mm.fp32_precision == "ieee"
+        assert mm.fp32_precision == "tf32"
+    finally:
+        mm.fp32_precision = "ieee"
+        mm.allow_tf32 = saved

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""K4's and K2's times at the shapes of the paths that run them, for the
+dsptpu_torch package under ROOT (default: this checkout):
+
+    python3 tools/k4_k2_ab.py [ROOT]
+
+Builds ROOT's kernels, then times on the card (CUDA-event medians) K4 at
+path A's shapes (16 x 10,000,000 float32, 4096 taps, nfft 16384), K2
+forward at the main path's shapes (the 8th-order Butterworth cascade
+over 1,000,000 x 64, as sosfilt builds it) and K2 forward and reverse
+(n_eff) at path B's (filtfilt's two passes over the same stream), the
+device time of K2's output stage in one forward call (torch.profiler:
+the kernels whose name holds "output"), and entry(), fftfilt_entry() and
+filtfilt_lpc_entry() end to end. Prints the card (nvidia-smi name and
+power limit) and one JSON line. To compare two checkouts, run it on both
+in one call, in the order parent, change, change, parent.
+"""
+
+import importlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def time_ms(fn, reps=10, warmup=2):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def output_stage_ms(fn):
+    """Device time of the kernels named *output* in one call of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "output" in e.key) / 1e3
+
+
+def main():
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("k4_k2_ab: CUDA is not available")
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                           os.path.join(os.path.dirname(__file__), ".."))
+    sys.path.insert(0, root)
+    import dsptpu_torch
+    from dsptpu_torch.kernels import _build, biir, osconv
+    from dsptpu_torch.ops.dspbase import optimal_os_nfft
+    from dsptpu_torch.pipeline import chain_params, fftfilt_taps
+    if not os.path.abspath(dsptpu_torch.__file__).startswith(root):
+        raise SystemExit(f"k4_k2_ab: imported {dsptpu_torch.__file__}, "
+                         f"not the package under {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    _build.build_all()
+    dev = torch.device("cuda")
+    # the cascade's system as each package's sosfilt and filtfilt build it
+    filt = importlib.import_module("dsptpu_torch.filters.filt")
+    cascade = getattr(filt, "_cascade_ss", None) or (
+        lambda sos, g: filt._blockss(*filt._stack_cascade(sos, g)))
+    res = {"root": root}
+
+    forward, (x,) = dsptpu_torch.fftfilt_entry(device="cuda")
+    h = torch.as_tensor(fftfilt_taps(), device=dev)
+    n = x.shape[0]
+    nfft = optimal_os_nfft(n, h.shape[0])
+    res["k4_ms"] = time_ms(lambda: osconv.osconv(x, h, nfft, n))
+    res["path_a_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
+    del forward, x
+    torch.cuda.empty_cache()
+
+    forward, (x,) = dsptpu_torch.entry(device="cuda")
+    C = x.shape[1]
+    ss = cascade(chain_params()[1].astype(np.float64), 1.0)
+    z0 = torch.zeros((ss.p, C), device=dev)
+    res["k2_main_ms"] = time_ms(lambda: biir.blockss_filt(ss, x, z0))
+    res["k2_main_output_ms"] = output_stage_ms(
+        lambda: biir.blockss_filt(ss, x, z0))
+    res["main_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
+    del forward, x
+    torch.cuda.empty_cache()
+
+    forward, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda")
+    n, C = x.shape
+    f = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.2), dsptpu_torch.Butterworth(8)))
+    ss = cascade(f.sos_array(), f.g)
+    pad = 6 * len(f.biquads)
+    m = (n // 128) * 128
+    xe = torch.cat([x, x[n - 1 - pad: n - 1].flip(0)], 0)
+    z0 = torch.zeros((ss.p, C), device=dev)
+    res["k2_b_forward_ms"] = time_ms(lambda: biir.blockss_filt(ss, xe, z0))
+    y1 = biir.blockss_filt(ss, xe, z0)
+    res["k2_b_reverse_ms"] = time_ms(lambda: biir.blockss_filt(
+        ss, y1, z0, reverse=True, n_eff=m))
+    res["k2_b_reverse_output_ms"] = output_stage_ms(
+        lambda: biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m))
+    del xe, y1
+    res["path_b_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()
