@@ -166,8 +166,19 @@ def small_cases(dev):
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    for n, C, nb in [(40037, 1, 2), (40037, 3, 127), (33001, 64, 300),
-                     (50000, 33, 512), (40000, 40, 1536)]:
+    # K1: every C template (C = 1, 2, ragged last groups at 31, 33, 100)
+    # at nb from 2 to 1536, n just above 4 nb, n a tile +- 1, and long
+    # streams whose blocks walk runs of many tiles (as in
+    # tests/test_torch_cuda.py)
+    fir_cases = [(40037, 1, 2), (40037, 3, 127), (33001, 64, 300),
+                 (50000, 33, 512), (40000, 40, 1536), (300_007, 33, 129),
+                 (2_000_003, 1, 17), (200_003, 100, 1536), (500_001, 2, 512)]
+    for C in (1, 2, 31, 32, 33, 64, 100):
+        fir_cases += [(4 * nb + 1 + C, C, nb)
+                      for nb in (2, 16, 17, 127, 128, 129, 512, 1536)]
+        tt = fir._plan(1, C, 127)["tt"]
+        fir_cases += [(2 * tt - 1, C, 127), (2 * tt + 1, C, 127)]
+    for n, C, nb in fir_cases:
         x = t(rng.standard_normal((n, C)))
         b = t(rng.standard_normal(nb))
         compare("fir", fir.fir(x, b), fir.fir_reference(x, b),
@@ -1089,6 +1100,17 @@ def main():
         bound=bound(2 * n * C * 4 + nb * 4, 2 * nb * n * C)))
     report(rows[-1])
     del xc
+    # K1 at BASELINE config 1's shape (10,000,000 x 1, the same taps),
+    # logged on its own; the kernels line keeps the main path's shapes
+    x1 = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (10_000_000, 1)).astype(np.float32), device=dev)
+    compare("fir", fir.fir(x1, taps), fir.fir_reference(x1, taps),
+            "10,000,000 x 1")
+    bms, by = bound(2 * x1.numel() * 4 + nb * 4, 2 * nb * x1.numel())
+    log(f"  fir at 10,000,000 x 1: kernel "
+        f"{time_ms(lambda: fir.fir(x1, taps), inner=10):.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    del x1
 
     ss = _cascade_ss(sos_np.astype(np.float64), 1.0)   # as sosfilt builds it
     z0 = torch.zeros((ss.p, C), device=dev)

@@ -56,8 +56,23 @@ def randn(dev, *shape, seed=0):
                            device=dev)
 
 
-@pytest.mark.parametrize("n,C,nb", [(40037, 1, 2), (40037, 3, 127),
-                                    (33001, 64, 300), (5000, 40, 1536)])
+def fir_cases():
+    """K1's cases: every C template (C = 1, 2, a ragged last group at 31,
+    33 and 100) at nb from 2 to 1536 (multiples of R = 16 and not), n
+    just above 4 nb, n a tile +- 1, and long streams whose blocks walk
+    runs of many tiles; also in chip_smoke.py."""
+    cases = [(40037, 1, 2), (40037, 3, 127), (33001, 64, 300),
+             (5000, 40, 1536), (300_007, 33, 129), (2_000_003, 1, 17),
+             (200_003, 100, 1536), (500_001, 2, 512)]
+    for C in (1, 2, 31, 32, 33, 64, 100):
+        cases += [(4 * nb + 1 + C, C, nb)
+                  for nb in (2, 16, 17, 127, 128, 129, 512, 1536)]
+        tt = fir._plan(1, C, 127)["tt"]
+        cases += [(2 * tt - 1, C, 127), (2 * tt + 1, C, 127)]
+    return cases
+
+
+@pytest.mark.parametrize("n,C,nb", fir_cases())
 def test_fir_kernel_matches_plain(dev, n, C, nb):
     x, b = randn(dev, n, C, seed=n), randn(dev, nb, seed=nb)
     y = launched_once("fir", lambda: fir.fir(x, b))

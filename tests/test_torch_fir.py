@@ -96,3 +96,115 @@ def test_long_taps_route_not_ported():
         want = dsptpu.filt(jnp.asarray(b), jnp.asarray(x))
         got = dsptpu_torch.filt(torch.as_tensor(b), torch.as_tensor(x))
         check(got, want, TOL[dtype])
+
+
+def emulate_fir_kernel(x, b, wave):
+    """float64 emulation of csrc/fir.cu's walk, all blocks of a launch at
+    once: the wrapper's plan (`_plan`, `_runs` for `wave` resident
+    blocks), each block's ring of segments staged with zero fill outside
+    [0, n) x [0, C) (the next tile before the current one computes, as
+    the kernel orders it), and each thread's registers: cur and nxt
+    slide down one row per tap, read at the kernel's shared addresses.
+    Ring cells never staged hold NaN, so a read of one shows."""
+    n, C = x.shape
+    nb = b.shape[0]
+    p = tfir._plan(n, C, nb)
+    runs = tfir._runs(p, wave)
+    R, cw, v, ncl, tt = tfir.R, p["cw"], p["v"], p["ncl"], p["tt"]
+    nbp, nseg, sseg, ntiles = p["nbp"], p["nseg"], p["sseg"], p["ntiles"]
+    obuf = tfir.THREADS * (R + 1) if v == 1 else 0
+    assert p["smem"] == 4 * (nbp + nseg * sseg + obuf) <= tfir.MAX_SMEM
+    assert nseg * R == nbp + 2 * tt and nbp % (2 * R) == 0
+    nblk = p["groups"] * runs
+    blk = np.arange(nblk)
+    cbase = blk // runs * cw
+    run = blk % runs
+    tile0, tile1 = ntiles * run // runs, ntiles * (run + 1) // runs
+    tbase = tile0 * tt - nbp
+    hs = np.zeros(nbp)
+    hs[:nb] = b
+    ring = np.full((nblk, nseg * sseg), np.nan)
+
+    # 16-byte copies (W = 4) where C is a multiple of 4: a thread keeps
+    # one column of W floats and steps down the rows
+    W = 4 if cw >= 4 and C % 4 == 0 else 1
+    per_row = cw // W
+
+    def stage(r0, rows, live):
+        tid = np.arange(tfir.THREADS)
+        r = tid // per_row + np.arange(0, rows, tfir.THREADS // per_row)[
+            :, None]
+        col = np.broadcast_to(tid % per_row * W, r.shape)
+        keep = r < rows
+        r, col = r[keep][:, None], col[keep][:, None] + np.arange(W)
+        r, col = np.broadcast_arrays(r, col)
+        r, col = r.ravel(), col.ravel()
+        assert len(np.unique(r * cw + col)) == rows * cw
+        slot = r0 // R % nseg + r // R
+        slot = np.where(slot >= nseg, slot - nseg, slot)
+        t = tbase[:, None] + r0 + r
+        c = cbase[:, None] + col
+        ok = (t >= 0) & (t < n) & (c < C)
+        val = np.where(ok, x[np.clip(t, 0, n - 1), np.clip(c, 0, C - 1)], 0)
+        addr = slot * sseg + r % R * cw + col
+        ring[np.ix_(live, addr)] = val[live]
+
+    stage(0, nbp + tt, blk >= 0)
+    tid = np.arange(tfir.THREADS)
+    tl, cl = tid // ncl, tid % ncl
+    lane = v * cl[:, None] + np.arange(v)            # (threads, v)
+    y = np.full((n, C), np.nan)
+    written = np.zeros((n, C), int)
+    for m in range(int((tile1 - tile0).max())):
+        live = tile0 + m < tile1
+        rtile = nbp + m * tt
+        if (tile0 + m + 1 < tile1).any():
+            stage(rtile + tt, tt, tile0 + m + 1 < tile1)
+        rme = rtile + tl * R
+        s = rme // R % nseg
+
+        def rows(s, i):     # (blocks, threads, v) at segment s, row i
+            return ring[:, s[:, None] * sseg + i * cw + lane]
+        cur = np.stack([rows(s, j) for j in range(R)])
+        acc = np.zeros_like(cur)
+        nxt = np.empty_like(cur)
+        for k0 in range(0, nbp, R):
+            s = np.where(s == 0, nseg - 1, s - 1)
+            for kk in range(R):
+                if kk:
+                    nxt[R - kk] = rows(s, R - kk)
+                w = np.concatenate([nxt[R - kk:], cur[:R - kk]])
+                acc += hs[k0 + kk] * w
+            nxt[0] = rows(s, 0)
+            cur, nxt = nxt, cur
+        t = tbase[None, :, None, None] + rme[None, None, :, None] + \
+            np.arange(R)[:, None, None, None]
+        c = cbase[None, :, None, None] + lane[None, None]
+        ok = (t < n) & (c < C) & live[None, :, None, None]
+        t, c = np.broadcast_arrays(t, c)
+        y[t[ok], c[ok]] = acc[ok]
+        np.add.at(written, (t[ok], c[ok]), 1)
+    assert (written == 1).all()         # every output stored exactly once
+    return y, p, runs
+
+
+@pytest.mark.parametrize("nb", [2, 17, 127, 512, 1536])
+@pytest.mark.parametrize("C", [1, 3, 33, 64])
+def test_fir_kernel_walk_emulated(C, nb):
+    """The kernel's index arithmetic in float64 against lfilter at 1e-10:
+    runs that start mid-stream and carry their ring from tile to tile,
+    zero fill before t = 0 and past n, ragged channel groups (C = 3 and
+    33), n ragged against the tile, nb not a multiple of R."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(C * 1000 + nb)
+    p = tfir._plan(1, C, nb)
+    n = max(4 * nb + 1, 5 * p["tt"] + 3)
+    x = rng.standard_normal((n, C))
+    b = rng.standard_normal(nb)
+    want = lfilter(b, [1.0], x, axis=0)
+    groups = tfir._plan(n, C, nb)["groups"]
+    for wave in (2 * groups, 3 * groups + 1):   # runs of 2 or 3 tiles, ragged
+        got, plan, runs = emulate_fir_kernel(x, b, wave)
+        assert runs > 1 and plan["ntiles"] // runs >= 1
+        assert np.isfinite(got).all()
+        check(got, want, 1e-10)
