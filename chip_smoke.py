@@ -353,6 +353,36 @@ def small_cases(dev):
                         f"{'history' if history else 'fresh'}")
                 if not torch.equal(h, hr):
                     raise AssertionError(f"pfb2 {rate} n={n}: new history")
+    # every tap template (8, 16, ..., 64), banks of more than 64 taps (in
+    # chunks) and L larger than a block's lanes (columns in passes), with
+    # random banks, fresh and mid-stream
+    for taps, L, M in ([(t, 7, 5) for t in (5, 16, 21, 29, 40, 41, 56, 64)]
+                       + [(t, 147, 160) for t in (5, 21, 41, 64)]
+                       + [(65, 7, 5), (200, 3, 2), (800, 7, 5),
+                          (40, 1201, 800), (9, 300, 7)]):
+        for history in (False, True):
+            a = k6_random_args(dev, taps, L, M, 40037, history, rng)
+            compare("pfb2", pfb2.pfb2(*a), pfb2.pfb2_reference(*a),
+                    f"random {taps} x {L} bank, M {M}, geometry "
+                    f"{pfb2._launch_geometry(taps, L, M, a[5])[:5]} "
+                    f"{'history' if history else 'fresh'}")
+    # an Inf and a NaN in the stream reach only the outputs whose windows
+    # hold them: no zero tap that pads a pass meets a sample past them
+    for taps, L, M in ((41, 147, 160), (37, 3, 2), (5, 7, 5), (147, 1, 4),
+                       (200, 3, 2)):
+        for history in (False, True):
+            a = list(k6_random_args(dev, taps, L, M, 40037, history, rng))
+            a[1][1000], a[1][5001] = float("inf"), float("nan")
+            y, yr = pfb2.pfb2(*a), pfb2.pfb2_reference(*a)
+            fin = torch.isfinite(yr)
+            what = (f"random {taps} x {L} bank, M {M}, Inf and NaN in x, "
+                    f"{'history' if history else 'fresh'}")
+            if not torch.equal(torch.isfinite(y), fin) or fin.all():
+                raise AssertionError(f"pfb2 {what}: non-finite outputs "
+                                     f"{int((~torch.isfinite(y)).sum())}, "
+                                     f"plain {int((~fin).sum())}")
+            compare("pfb2", y[fin], yr[fin], what + f", {int((~fin).sum())} "
+                    f"non-finite as in the plain version")
     for rate in (0.9997, 0.99999, 0.999):
         for mid in (False, True):
             a = k7_args(dev, rate, 40037, mid, rng)
@@ -385,6 +415,21 @@ def k6_args(dev, rate, n, history, rng):
     pfb = torch.as_tensor(dsptpu_torch.taps2pfb(h, L), device=dev)
     return (hist, x, pfb, L, M, getattr(k, "phi_idx", 1),
             k.input_deficit + (hl if history else 0), k.output_length(n), hl)
+
+
+def k6_random_args(dev, taps, L, M, n, history, rng):
+    """One pfb2 call with a random (taps, L) bank at rate L/M: fresh, or
+    mid-stream with a random history of taps + 5 samples, entry phase
+    L // 2 + 1 and input deficit 3."""
+    import torch
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+    hl = taps + 5
+    return (t(hl) if history else None, t(n), t(taps, L), L, M,
+            L // 2 + 1 if history else 1, 3 + hl if history else 1,
+            n * L // M)
 
 
 def k7_args(dev, rate, n, mid_stream, rng):
@@ -430,10 +475,11 @@ CALLS_PROFILED = 2
 def _profile_once(forward, x):
     """key_averages() of CALLS_PROFILED calls of forward(x) under
     torch.profiler, after a warm-up step inside the profiler's schedule.
-    Each step starts with a short spin kernel: the first device records of
-    a window have gone missing (K6 in a run of path C, K1 in one of the
-    main path), so the spin takes that place and the path's kernels
-    follow it."""
+    Each step starts with a spin kernel of about a millisecond: the
+    device records of a window's first fraction of a millisecond have gone
+    missing (K6 in runs of path C, K1 in one of the main path; a spin of
+    0.1 ms still lost the first K6 of path C), so the spin takes that
+    place and the path's kernels follow it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     traces = []
@@ -442,7 +488,7 @@ def _profile_once(forward, x):
                  on_trace_ready=lambda p: traces.append(p.key_averages())
                  ) as prof:
         for _ in range(2):
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(2_000_000)
             for _ in range(CALLS_PROFILED):
                 forward(x)
             torch.cuda.synchronize()
@@ -454,9 +500,10 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
     """Device time by kernel per call of a path (torch.profiler over
     CALLS_PROFILED calls), and its share of call_ms, the call's
     unprofiled time. Every kernel that `counts` (the launch counters of
-    the path's run) says was launched must have a device record: the
-    profile is taken again once if one is missing, and the run fails if
-    it is still missing."""
+    the path's run) says was launched must have a device record, and a
+    wrapper that launches one kernel a call one record for each launch
+    in the profiled calls: the profile is taken again once if one is
+    missing, and the run fails if it is still missing."""
     import torch
     from torch.autograd import DeviceType
     forward(x)
@@ -466,9 +513,15 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
     for attempt in (1, 2):
         avg = _profile_once(forward, x)
         dev_events = [e for e in avg if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation and "sleep" not in e.key]
+                      and not e.is_user_annotation and "spin" not in e.key]
         missing = [w for w in want
                    if not any(w in e.key for e in dev_events)]
+        missing += [f"{c * CALLS_PROFILED} x {w}"
+                    for name, c in counts.items()
+                    if c and len(DEVICE_KERNELS[name]) == 1
+                    for w in DEVICE_KERNELS[name]
+                    if sum(e.count for e in dev_events if w in e.key)
+                    < c * CALLS_PROFILED]
         if not missing:
             break
         log(f"profile ({label}), attempt {attempt}: no device record of "
@@ -705,8 +758,8 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
         args = (None, x, pfb, L, M, 1, 1, out_len)
         k6_full.append((args, hl))
         log(f"  {r}: {L} phases x {taps} taps, history {hl}, "
-            f"{out_len} outputs, bank in shared memory "
-            f"{pfb2._launch_geometry(taps, L, M)[1]}")
+            f"{out_len} outputs, geometry (taps a pass, passes, lanes, "
+            f"warps, k, span) {pfb2._launch_geometry(taps, L, M, 1)}")
         y = pfb2.pfb2(*args, hist_len=hl)[0]
         err = compare("pfb2", y, pfb2.pfb2_reference(*args),
                       f"{r} path C shapes")
@@ -809,8 +862,8 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
         if kernels.launch_counts()["pfb2"] != 4:
             raise AssertionError(f"{r} chunks: launches "
                                  f"{kernels.launch_counts()}")
-        compare("pfb2", torch.cat(parts), one,
-                f"{r} in 4 chunks vs one-shot")
+        exact("pfb2", torch.cat(parts), one,
+              f"{r} in 4 chunks vs one-shot (bit for bit)")
         del one, parts
     f = fs[ra]
     k = f.kernel
@@ -1058,7 +1111,7 @@ def main():
                 if "Compiling entry" in line:
                     entry = line.split("'")[1] if "'" in line else line
                 if ("registers" in line or "spill" in line.lower()
-                        or (name in ("stft", "osconv", "biir")
+                        or (name in ("stft", "osconv", "biir", "pfb2")
                             and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
                 if ("bytes stack frame" in line and not
@@ -1066,6 +1119,9 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
+    if any(f.startswith("pfb2:") for f in framed):
+        raise AssertionError("pfb2: a tap template keeps registers in a "
+                             "stack frame")
     log("kernels to build and check: " + ", ".join(_build.SOURCES))
 
     # 3. each kernel against its plain version, small ragged shapes

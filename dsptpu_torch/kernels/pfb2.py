@@ -15,12 +15,18 @@ dsptpu's FIRFilter passes it; `hist_len` > 0 also returns the new
 history, the last hist_len samples of xcat, as a copy.
 
 Bound on an H100: the bytes, 4 per input and 4 per output sample
-(76.75 MB at 147/160 over 10,000,000 samples); the 2 taps flops per
-output are about half that time on the CUDA cores. A block takes a run
-of consecutive outputs, stages the input span they read (about
-run * M / L + taps samples) and, where it fits, the bank in shared
-memory with coalesced loads; one thread per output runs its dot from
-shared memory, and the stores are coalesced. See csrc/pfb2.cu.
+(76.75 MB at 147/160 over 10,000,000 samples). What holds it back is
+shared memory, one 32-bank wavefront a cycle per SM, so the kernel
+reads one shared word per multiply-add: each thread keeps one phase
+column's taps in registers (a compile-time count, a multiple of 8 up to
+64; longer banks in chunks of consecutive taps, taps // nch or one more
+each) and walks that column
+down the rows of a tile of `_ROWS` x k L outputs, whose input span the
+block stages while it computes the tile before. `_launch_geometry`
+picks the lanes of a warp, the warps of a block and k for the fewest
+wavefronts per output. The zero taps that pad a chunk to the template's
+count are not multiplied, so an Inf or NaN just past an output's window
+leaves that output finite, as in the plain version. See csrc/pfb2.cu.
 
 The TPU kernel's geometry (superchunks, lane-mixing tap tables, the
 grouped mode) is not ported. Its host gates are, unchanged:
@@ -34,6 +40,7 @@ tap), for a CPU tensor. `launches["pfb2"]` counts kernel launches.
 """
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -47,16 +54,16 @@ __all__ = ["pfb2", "pfb2_reference", "pfb2_supported", "pfb2_default_on",
 
 launches = {"pfb2": 0}
 
-_MAX_SMEM = 232448              # dynamic shared memory a block may use
-_SMEM_BANK_MAX = 96 * 1024      # a larger bank is read from global memory
+_ROWS = 8            # rows of a tile (csrc/pfb2.cu kRows)
+_MAX_WARPS = 8       # warps of a block (csrc/pfb2.cu kMaxThreads / 32)
+_MAX_SPAN = 12288    # samples a tile stages, 48 KB in each of two buffers
 
 # dsptpu_pfb2(hist, hl, x, n, pfb, taps, L, M, phi0m1, deficit, out_len,
-#             to, bank_smem, smem_bytes, y, stream)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+#             nt, nch, lanes, warps, k, span, y, stream)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_void_p]
+             + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 
 
 # -- dsptpu's gate (kernels/pfb2.py:78-162), host numpy --------------------
@@ -133,40 +140,63 @@ def _group_partition(D_c, cap_rows=_GRP_CAP_ROWS):
 
 # -- the CUDA kernel's geometry, mirrored for the host and the tests -------
 
-def _span_cap(to, taps, L, M):
-    """Most input samples a run of `to` outputs reads: w_last - w_first
-    <= floor((to - 1) M / L) + 1, plus the last window's taps."""
-    return (to - 1) * M // L + taps + 1
+def _tap_split(taps):
+    """(taps a pass, passes): passes of taps // passes consecutive taps
+    or one more, at most 64, padded with zero taps at the end to one
+    count, a multiple of 8 (at most 8 zero taps a pass)."""
+    nch = -(-taps // 64)
+    return 8 * -(-taps // (8 * nch)), nch
 
 
-def _launch_geometry(taps, L, M):
-    """(outputs per block, bank in shared memory, shared bytes). A bank
-    of more than 2048 floats gets 4096 outputs per block, so that each
-    staged copy of it serves more outputs; a run shrinks until its span
-    and the bank fit."""
-    bank_smem = taps * L * 4 <= _SMEM_BANK_MAX
-    bank_f = taps * L if bank_smem else 0
-    to = 4096 if bank_f > 2048 else 1024
-
-    def smem(to):
-        return 4 * (bank_f + _span_cap(to, taps, L, M))
-    while smem(to) > _MAX_SMEM and to > 32:
-        to //= 2
-    if smem(to) > _MAX_SMEM:
-        raise ValueError(f"pfb2 kernel: taps={taps} L={L} M={M} does not "
-                         "fit shared memory")
-    return to, bank_smem, smem(to)
+def _wavefronts(lanes, L, M):
+    """Shared-memory wavefronts of one warp load whose `lanes` lanes take
+    consecutive outputs, at the worst column the warp can start on: the
+    most distinct words that fall in one of the 32 banks (lanes that read
+    one word share it)."""
+    phi = np.arange(L if L <= 4096 else 4096, dtype=np.int64)[:, None]
+    phi = phi * (L // phi.shape[0])
+    words = (phi + np.arange(lanes, dtype=np.int64) * M) // L
+    first = np.ones(words.shape, bool)              # words rise with lane
+    first[:, 1:] = np.diff(words, axis=1) != 0
+    key = np.arange(len(words))[:, None] * 32 + words % 32
+    return int(np.bincount(key[first], minlength=32).max())
 
 
-def _block_spans(taps, L, M, phi0, deficit, out_len, to):
-    """What each block of csrc/pfb2.cu stages: its first sample w0 and
-    one past its last, from the block's first and last outputs
-    (int64, as the kernel computes them)."""
-    j0 = np.arange(0, out_len, to, dtype=np.int64)
-    j1 = np.minimum(j0 + to, out_len) - 1
-    base = deficit - taps
-    w0 = base + (phi0 - 1 + j0 * M) // L
-    return w0, base + (phi0 - 1 + j1 * M) // L + taps
+def _span(nt, nch, L, M, k, phi0):
+    """Samples a tile stages: its last row's last window, padded taps
+    included, from the first window's start."""
+    return ((_ROWS - 1) * k * M + (phi0 - 1 + (k * L - 1) * M) // L
+            + nt * nch)
+
+
+@functools.lru_cache(maxsize=None)
+def _columns(taps, L, M):
+    """(nt, nch, lanes, warps, k) with the fewest wavefronts per output
+    and tap: `warps` warps of `lanes` lanes each keep one column of a row
+    of k L outputs (passes over the row where it is longer), and the
+    tile's span fits _MAX_SPAN for any entry phase (at k = 1 the gate's
+    M + taps - 1 <= 896 keeps it under 8248). Ties go to more lanes,
+    then more warps."""
+    nt, nch = _tap_split(taps)
+    best = None
+    for lanes in range(32, 0, -1):
+        wf = _wavefronts(lanes, L, M)
+        for warps in range(_MAX_WARPS, 0, -1):
+            slots = lanes * warps
+            k = max(1, slots // L)
+            while k > 1 and _span(nt, nch, L, M, k, L) > _MAX_SPAN:
+                k -= 1
+            cost = warps * wf * -(-k * L // slots) / (k * L)
+            if best is None or cost < best[0]:
+                best = (cost, lanes, warps, k)
+    return (nt, nch) + best[1:]
+
+
+def _launch_geometry(taps, L, M, phi0):
+    """The kernel's geometry for one call: nt, nch, lanes, warps, k and
+    the span a tile stages."""
+    nt, nch, lanes, warps, k = _columns(taps, L, M)
+    return nt, nch, lanes, warps, k, _span(nt, nch, L, M, k, phi0)
 
 
 # -- plain version and wrapper ---------------------------------------------
@@ -228,14 +258,14 @@ def pfb2(hist, x, pfb, L, M, phi0, deficit, out_len, hist_len=0):
     if not (1 <= phi0 <= L) or out_len < 1:
         raise ValueError(f"pfb2 kernel: phi0={phi0} out of [1, {L}] or "
                          f"out_len={out_len} < 1")
-    to, bank_smem, smem = _launch_geometry(taps, L, M)
+    geometry = _launch_geometry(taps, int(L), int(M), int(phi0))
     y = torch.empty(out_len, dtype=torch.float32, device=x.device)
     f = _build.entry("pfb2", "dsptpu_pfb2", _ARGTYPES)
     err = f(0 if hist is None else hist.data_ptr(),
             0 if hist is None else hist.shape[0], x.data_ptr(), x.shape[0],
             pfb.data_ptr(), taps, int(L), int(M), int(phi0) - 1,
-            int(deficit), int(out_len), to, int(bank_smem), smem,
-            y.data_ptr(), _build.stream_of(x))
+            int(deficit), int(out_len), *geometry, y.data_ptr(),
+            _build.stream_of(x))
     _build.check("pfb2", err, "pfb2 kernel launch")
     launches["pfb2"] += 1
     if hist_len:

@@ -250,12 +250,27 @@ def k6_args(dev, rate, n, history, seed=0):
             k.input_deficit + (hl if history else 0), k.output_length(n), hl)
 
 
+def k6_random_args(dev, taps, L, M, n, history, seed=0):
+    """One pfb2 call with a random (taps, L) bank at rate L/M: fresh, or
+    mid-stream with a random history of taps + 5 samples, entry phase
+    L // 2 + 1 and input deficit 3."""
+    rng = np.random.default_rng(seed)
+    hl = taps + 5
+    pfb = torch.as_tensor(rng.standard_normal((taps, L)).astype(np.float32),
+                          device=dev)
+    hist = randn(dev, hl, seed=seed + 1) if history else None
+    return (hist, randn(dev, n, seed=seed + 2), pfb, L, M,
+            L // 2 + 1 if history else 1, 3 + hl if history else 1,
+            n * L // M)
+
+
 @pytest.mark.parametrize("history", [False, True])
 @pytest.mark.parametrize("n", [1061, 61951])
-@pytest.mark.parametrize("rate", ["147/160", "3/2", "1/4", "5", "441/640"])
+@pytest.mark.parametrize("rate", ["147/160", "3/2", "1/4", "5", "441/640",
+                                  "1/3", "7/5"])
 def test_pfb2_kernel_matches_plain(dev, rate, n, history):
-    """441/640's 441 x 58 bank (102 KB) is read from global memory; the
-    others are staged in shared memory."""
+    """441/640's 441 columns run in passes (more than one block's lanes);
+    1/4's 147 and 1/3's 111 taps in chunks of at most 64."""
     args = k6_args(dev, rate, n, history)
     y, h = launched_once("pfb2", lambda: pfb2.pfb2(*args[:-1],
                                                  hist_len=args[-1]))
@@ -264,12 +279,49 @@ def test_pfb2_kernel_matches_plain(dev, rate, n, history):
     assert torch.equal(h, hr)
 
 
-def test_pfb2_kernel_bank_in_global_memory(dev, monkeypatch):
-    """147/160 with its bank forced out of shared memory."""
-    args = k6_args(dev, "147/160", 61951, True)
-    monkeypatch.setattr(pfb2, "_SMEM_BANK_MAX", 0)
-    y = launched_once("pfb2", lambda: pfb2.pfb2(*args[:-1]))
-    check(y, pfb2.pfb2_reference(*args[:-1]), 3e-5)
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("L,M", [(7, 5), (147, 160)])
+@pytest.mark.parametrize("taps", [5, 16, 21, 29, 40, 41, 56, 64])
+def test_pfb2_kernel_every_template(dev, taps, L, M, history):
+    """One case for each compiled tap count (8, 16, ..., 64)."""
+    args = k6_random_args(dev, taps, L, M, 40037, history)
+    assert pfb2._launch_geometry(taps, L, M, args[5])[0] == -(-taps // 8) * 8
+    y = launched_once("pfb2", lambda: pfb2.pfb2(*args))
+    check(y, pfb2.pfb2_reference(*args), 3e-5)
+
+
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("taps,L,M", [(65, 7, 5), (200, 3, 2), (800, 7, 5),
+                                      (40, 1201, 800), (9, 300, 7)])
+def test_pfb2_kernel_long_bank_and_wide_rows(dev, taps, L, M, history):
+    """Banks of more than 64 taps (in chunks), and L larger than the
+    lanes of one block (columns in passes)."""
+    args = k6_random_args(dev, taps, L, M, 40037, history)
+    nt, nch, lanes, warps, k, _ = pfb2._launch_geometry(taps, L, M, args[5])
+    assert (nch > 1) == (taps > 64)
+    assert (taps <= 64) == (k * L > lanes * warps)
+    y = launched_once("pfb2", lambda: pfb2.pfb2(*args))
+    check(y, pfb2.pfb2_reference(*args), 3e-5)
+
+
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("taps,L,M", [(41, 147, 160), (37, 3, 2), (21, 7, 5),
+                                      (5, 7, 5), (147, 1, 4), (200, 3, 2),
+                                      (9, 300, 7)])
+def test_pfb2_kernel_nonfinite_input(dev, taps, L, M, history):
+    """An Inf and a NaN in the stream reach only the outputs whose windows
+    hold them, as in the plain version: the zero taps that pad a pass
+    (and each sample is just past some output's window) leave the
+    outputs they meet finite."""
+    args = list(k6_random_args(dev, taps, L, M, 40037, history))
+    x = args[1].clone()
+    x[1000], x[5001] = float("inf"), float("nan")
+    args[1] = x
+    y = launched_once("pfb2", lambda: pfb2.pfb2(*args))
+    want = pfb2.pfb2_reference(*args)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(y), fin) and not fin.all()
+    check(y[fin], want[fin], 3e-5)
 
 
 def k7_args(dev, rate, n, mid_stream, seed=0):

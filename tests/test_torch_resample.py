@@ -300,23 +300,22 @@ def test_pfb2_plain_matches_dsptpu_filter(rate):
                                   Fraction(5)])
 @pytest.mark.parametrize("history", [False, True])
 def test_pfb2_block_spans_cover_every_window(rate, history):
-    """A numpy emulation of csrc/pfb2.cu's index arithmetic: the span
-    each block stages (first and last sample, from its first and last
-    outputs) holds every window of its outputs, as the plain version
-    indexes them, and fits the shared memory the wrapper sizes."""
+    """csrc/pfb2.cu's tiles: the span each tile stages (from the first
+    window of its first row) holds every window of its outputs, padding
+    taps included, and fits the shared memory the wrapper sizes; and
+    the plain version indexes those windows."""
     _, x, pfb, L, M, phi0, deficit, out_len, _ = k6_case(rate, 61951,
                                                          history)
     taps_ = pfb.shape[0]
-    to, bank_smem, smem = tpfb2._launch_geometry(taps_, L, M)
-    assert bank_smem == (taps_ * L * 4 <= 96 * 1024)
-    first, end = tpfb2._block_spans(taps_, L, M, phi0, deficit, out_len, to)
-    cap = tpfb2._span_cap(to, taps_, L, M)
-    assert np.all(end - first <= cap)
-    assert 4 * ((taps_ * L if bank_smem else 0) + cap) == smem <= 232448
+    nt, nch, lanes, warps, k, span = tpfb2._launch_geometry(taps_, L, M,
+                                                            phi0)
+    assert nt % 8 == 0 and nt <= 64 and 0 <= nt * nch - taps_ < 8 * nch
+    assert span <= tpfb2._MAX_SPAN and warps <= tpfb2._MAX_WARPS
     j = np.arange(out_len, dtype=np.int64)
     w = deficit - taps_ + (phi0 - 1 + j * M) // L
-    b = j // to
-    assert np.all(w >= first[b]) and np.all(w + taps_ <= end[b])
+    tile = j // (tpfb2._ROWS * k * L)
+    w0 = deficit - taps_ + tile * tpfb2._ROWS * k * M
+    assert np.all(w >= w0) and np.all(w + nt * nch <= w0 + span)
     # the plain version's windows, through its own zero padding
     y = tpfb2.pfb2_reference(None, torch.as_tensor(x), torch.as_tensor(pfb),
                              L, M, phi0, deficit, out_len)
@@ -324,6 +323,139 @@ def test_pfb2_block_spans_cover_every_window(rate, history):
     idx = w[:, None] + np.arange(taps_) + taps_ + 2
     want = np.sum(xc[idx] * pfb[:, (phi0 - 1 + j * M) % L].T, axis=1)
     check(y, want, TOL[np.float32])
+
+
+def emulate_k6(hist, x, pfb, L, M, phi0, deficit, out_len):
+    """float64 numpy emulation of csrc/pfb2.cu's walk, from the wrapper's
+    geometry: tiles of _ROWS rows of P = k L outputs; thread slot
+    (warp * lanes + lane, lane < lanes) keeps column (phi0 - 1 + c M) mod
+    L for c = slot, slot + slots, ... < P, its window offset moving by
+    k M a row, and by the carried step of (slots M) mod L a pass; each
+    tile's shared span is staged from hist ‖ x (zero outside it) and NaN
+    past it; taps pass in nch chunks of ct consecutive taps, taps // nch
+    or one more, in nt register slots (nt - 8 <= ct <= nt), of which only
+    the first ct are multiplied: no padding slot meets a sample past the
+    window. Returns y, how often each output was written, and the most
+    wavefronts (the most distinct words in one bank) that one warp's load
+    took."""
+    taps_ = pfb.shape[0]
+    nt, nch, lanes, warps, k, span = tpfb2._launch_geometry(taps_, L, M,
+                                                            phi0)
+    rows = tpfb2._ROWS
+    P, kM, slots = k * L, k * M, lanes * warps
+    xcat = np.concatenate([[] if hist is None else hist, x])
+    tiles = -(-out_len // (rows * P))
+    pos = deficit - taps_ + (np.arange(tiles)[:, None] * rows * kM
+                             + np.arange(span))
+    inside = (pos >= 0) & (pos < len(xcat))
+    xs = np.full((tiles, span + rows * kM + nt * nch), np.nan)
+    xs[:, :span] = np.where(inside, xcat[np.clip(pos, 0, len(xcat) - 1)],
+                            0.0)
+    tid = np.arange(warps * 32)
+    lane, warp = tid % 32, tid // 32
+    slot = warp * lanes + lane
+    active = (lane < lanes) & (slot < P)
+    slot, warp = slot[active], warp[active]
+    q0 = phi0 - 1 + slot * M
+    col, off = q0 % L, q0 // L
+    doff, dcol = divmod(slots * M, L)
+    y = np.full(out_len, np.nan)
+    written = np.zeros(out_len, np.int64)
+    r, t = np.arange(rows), np.arange(nt)
+    c, wavefronts = slot.copy(), 0
+    while (m := c < P).any():
+        for w_ in np.unique(warp[m]):     # one warp's load: its offsets
+            o = off[m & (warp == w_)]
+            wavefronts = max(wavefronts, max(
+                len(np.unique(o[o % 32 == b])) for b in range(32)))
+        acc = np.zeros((tiles, m.sum(), rows))
+        cq, cr = divmod(taps_, nch)
+        for ch in range(nch):
+            t0, ct = ch * cq + min(ch, cr), cq + (ch < cr)
+            assert nt - 8 <= ct <= nt
+            h = pfb[t0 + t[:ct]][:, col[m]]
+            idx = (off[m][:, None, None] + t0
+                   + r[None, :, None] * kM + t[None, None, :ct])
+            assert idx.max() + nt - ct < span   # padded windows fit too
+            acc += np.einsum("sjrt,tj->sjr", xs[:, idx], h)
+        j = (np.arange(tiles)[:, None, None] * rows * P
+             + c[m][None, :, None] + r[None, None, :] * P)
+        keep = j < out_len
+        y[j[keep]] = acc[keep]
+        np.add.at(written, j[keep], 1)
+        c += slots
+        col, off = col + dcol, off + doff
+        off += col >= L
+        col = np.where(col >= L, col - L, col)
+    return y, written, wavefronts
+
+
+EMU_RATES = [Fraction(147, 160), Fraction(3, 2), Fraction(441, 640),
+             Fraction(1, 3), Fraction(7, 5), Fraction(1, 4)]
+
+
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("rate", EMU_RATES)
+def test_pfb2_kernel_walk_emulated(rate, history):
+    """The new K6 walk, emulated in float64, against the plain version
+    (and, at 3/2 and 1/4, dsptpu's Pallas kernel in interpret mode):
+    every output written once, no NaN (no read past a tile's staged
+    span), no more wavefronts than the wrapper's model counted, and one
+    a warp load at path C's two rates. 441/640 (a direct call; the gate
+    keeps the route off it) runs its 441 columns in passes; 1/3's 111
+    and 1/4's 147 taps run in chunks."""
+    hist, x, pfb, L, M, phi0, deficit, out_len, hl = k6_case(rate, 40000,
+                                                             history)
+    taps_ = pfb.shape[0]
+    assert (taps_ > 64) == (rate in (Fraction(1, 3), Fraction(1, 4)))
+    y, written, wf = emulate_k6(hist, x, pfb, L, M, phi0, deficit, out_len)
+    assert np.all(written == 1) and np.isfinite(y).all()
+    lanes = tpfb2._columns(taps_, L, M)[2]
+    assert wf <= tpfb2._wavefronts(lanes, L, M)
+    if rate in (Fraction(147, 160), Fraction(3, 2)):
+        assert wf == 1
+    want = tpfb2.pfb2_reference(None if hist is None else torch.as_tensor(
+        hist), torch.as_tensor(x), torch.as_tensor(pfb), L, M, phi0,
+        deficit, out_len)
+    check(torch.as_tensor(y), want.double().numpy(), TOL[np.float32])
+    if rate in (Fraction(3, 2), Fraction(1, 4)):
+        yj, _ = jpfb2.pfb2_resample_pallas(
+            x, pfb, L, M, phi0, deficit, out_len, S=4, interpret=True,
+            hist_len=hl, hist=hist)
+        check(torch.as_tensor(y), np.asarray(yj, np.float64),
+              TOL[np.float32])
+
+
+@pytest.mark.parametrize("history", [False, True])
+@pytest.mark.parametrize("rate", [Fraction(147, 160), Fraction(3, 2),
+                                  Fraction(1, 4), "5 taps at 7/5"])
+def test_pfb2_kernel_walk_emulated_nonfinite(rate, history):
+    """An Inf and a NaN in the stream reach only the outputs whose windows
+    hold them, in the emulated walk as in the plain version: no zero tap
+    that pads a pass meets a sample past them (a random 5-tap bank takes
+    the 8-slot template, 3 of its slots padding)."""
+    if isinstance(rate, str):
+        rng = np.random.default_rng(9)
+        L, M, hl = 7, 5, 10
+        pfb = rng.standard_normal((5, L))
+        hist = rng.standard_normal(hl) if history else None
+        x = rng.standard_normal(20000)
+        phi0, deficit = (L // 2 + 1, 3 + hl) if history else (1, 1)
+        out_len = 20000 * L // M
+    else:
+        hist, x, pfb, L, M, phi0, deficit, out_len, _ = k6_case(
+            rate, 20000, history)
+    x = x.copy()
+    x[1000], x[5001] = np.inf, np.nan
+    y, written, _ = emulate_k6(hist, x, pfb, L, M, phi0, deficit, out_len)
+    want = tpfb2.pfb2_reference(None if hist is None else torch.as_tensor(
+        hist), torch.as_tensor(x), torch.as_tensor(pfb), L, M, phi0,
+        deficit, out_len).double().numpy()
+    fin = np.isfinite(want)
+    assert np.all(written == 1)
+    assert 0 < (~fin).sum() <= 2 * (pfb.shape[0] * L // M + 1)
+    assert np.array_equal(np.isfinite(y), fin)
+    check(torch.as_tensor(y[fin]), want[fin], TOL[np.float32])
 
 
 def test_pfb2_gates_are_dsptpus():

@@ -1,0 +1,74 @@
+"""The harness the per-kernel A/B scripts (tools/k*_ab.py) share: each
+times the dsptpu_torch package under ROOT on the card, so that two
+checkouts can be compared in one call (parent, change, change, parent).
+"""
+
+import os
+import statistics
+import subprocess
+import sys
+
+
+def open_root(tool):
+    """Put ROOT (argv[1], default this checkout) first on sys.path, check
+    that its dsptpu_torch is the one imported, print the card's nvidia-smi
+    name and power limit, build ROOT's kernels, and return ROOT."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{tool}: CUDA is not available")
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                           os.path.join(os.path.dirname(__file__), ".."))
+    sys.path.insert(0, root)
+    import dsptpu_torch
+    from dsptpu_torch.kernels import _build
+    if not os.path.abspath(dsptpu_torch.__file__).startswith(root):
+        raise SystemExit(f"{tool}: imported {dsptpu_torch.__file__}, "
+                         f"not the package under {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    _build.build_all()
+    return root
+
+
+def time_ms(fn, reps, warmup, inner=1):
+    """Median over `reps` runs of the CUDA-event time of `inner` calls of
+    fn back to back, divided by `inner`, after `warmup` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / inner)
+    return statistics.median(ts)
+
+
+def device_ms(fn, name="", calls=1):
+    """Device time per call of fn of the kernels whose name holds `name`
+    (every kernel for ""), by torch.profiler over `calls` calls after one
+    unprofiled call. The window starts with a spin kernel of about a
+    millisecond, left out of the sum: the device records of a window's
+    first fraction of a millisecond can go missing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and "spin" not in e.key
+               and name in e.key) / 1e3 / calls

@@ -17,65 +17,17 @@ in the order parent, change, change, parent.
 """
 
 import json
-import os
-import statistics
-import subprocess
-import sys
 
-
-def time_ms(fn, reps=20, warmup=3, inner=10):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / inner)
-    return statistics.median(ts)
-
-
-def device_ms(fn, calls=10):
-    """Device time of the kernels named *fir_kernel* per call of fn."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "fir_kernel" in e.key) / 1e3 / calls
+from ab_common import device_ms, open_root, time_ms
 
 
 def main():
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("k1_ab: CUDA is not available")
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.join(os.path.dirname(__file__), ".."))
-    sys.path.insert(0, root)
+    root = open_root("k1_ab")
     import dsptpu_torch
-    from dsptpu_torch.kernels import _build, fir
+    from dsptpu_torch.kernels import fir
     from dsptpu_torch.pipeline import chain_params
-    if not os.path.abspath(dsptpu_torch.__file__).startswith(root):
-        raise SystemExit(f"k1_ab: imported {dsptpu_torch.__file__}, "
-                         f"not the package under {root}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    _build.build_all()
     dev = torch.device("cuda")
     taps = torch.as_tensor(chain_params()[0], device=dev)
     res = {"root": root}
@@ -92,11 +44,13 @@ def main():
         if not rel <= 3e-5:
             raise SystemExit(f"k1_ab: K1 at {key} off by {rel:.3e}")
         del want, got
-        res[f"k1_{key}_ms"] = time_ms(lambda: fir.fir(xs, taps))
-        res[f"k1_{key}_device_ms"] = device_ms(lambda: fir.fir(xs, taps))
+        res[f"k1_{key}_ms"] = time_ms(lambda: fir.fir(xs, taps), reps=20,
+                                      warmup=3, inner=10)
+        res[f"k1_{key}_device_ms"] = device_ms(lambda: fir.fir(xs, taps),
+                                               "fir_kernel", calls=10)
     del x1
     torch.cuda.empty_cache()
-    res["main_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1, inner=1)
+    res["main_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     print(json.dumps(res), flush=True)
 
 

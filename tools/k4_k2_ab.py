@@ -18,64 +18,18 @@ in one call, in the order parent, change, change, parent.
 
 import importlib
 import json
-import os
-import statistics
-import subprocess
-import sys
 
-
-def time_ms(fn, reps=10, warmup=2):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
-
-
-def output_stage_ms(fn):
-    """Device time of the kernels named *output* in one call of fn."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "output" in e.key) / 1e3
+from ab_common import device_ms, open_root, time_ms
 
 
 def main():
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("k4_k2_ab: CUDA is not available")
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.join(os.path.dirname(__file__), ".."))
-    sys.path.insert(0, root)
+    root = open_root("k4_k2_ab")
     import dsptpu_torch
-    from dsptpu_torch.kernels import _build, biir, osconv
+    from dsptpu_torch.kernels import biir, osconv
     from dsptpu_torch.ops.dspbase import optimal_os_nfft
     from dsptpu_torch.pipeline import chain_params, fftfilt_taps
-    if not os.path.abspath(dsptpu_torch.__file__).startswith(root):
-        raise SystemExit(f"k4_k2_ab: imported {dsptpu_torch.__file__}, "
-                         f"not the package under {root}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    _build.build_all()
     dev = torch.device("cuda")
     # the cascade's system as each package's sosfilt and filtfilt build it
     filt = importlib.import_module("dsptpu_torch.filters.filt")
@@ -87,7 +41,8 @@ def main():
     h = torch.as_tensor(fftfilt_taps(), device=dev)
     n = x.shape[0]
     nfft = optimal_os_nfft(n, h.shape[0])
-    res["k4_ms"] = time_ms(lambda: osconv.osconv(x, h, nfft, n))
+    res["k4_ms"] = time_ms(lambda: osconv.osconv(x, h, nfft, n),
+                          reps=10, warmup=2)
     res["path_a_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     del forward, x
     torch.cuda.empty_cache()
@@ -96,9 +51,10 @@ def main():
     C = x.shape[1]
     ss = cascade(chain_params()[1].astype(np.float64), 1.0)
     z0 = torch.zeros((ss.p, C), device=dev)
-    res["k2_main_ms"] = time_ms(lambda: biir.blockss_filt(ss, x, z0))
-    res["k2_main_output_ms"] = output_stage_ms(
-        lambda: biir.blockss_filt(ss, x, z0))
+    res["k2_main_ms"] = time_ms(lambda: biir.blockss_filt(ss, x, z0),
+                                reps=10, warmup=2)
+    res["k2_main_output_ms"] = device_ms(
+        lambda: biir.blockss_filt(ss, x, z0), "output")
     res["main_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     del forward, x
     torch.cuda.empty_cache()
@@ -112,12 +68,14 @@ def main():
     m = (n // 128) * 128
     xe = torch.cat([x, x[n - 1 - pad: n - 1].flip(0)], 0)
     z0 = torch.zeros((ss.p, C), device=dev)
-    res["k2_b_forward_ms"] = time_ms(lambda: biir.blockss_filt(ss, xe, z0))
+    res["k2_b_forward_ms"] = time_ms(
+        lambda: biir.blockss_filt(ss, xe, z0), reps=10, warmup=2)
     y1 = biir.blockss_filt(ss, xe, z0)
     res["k2_b_reverse_ms"] = time_ms(lambda: biir.blockss_filt(
-        ss, y1, z0, reverse=True, n_eff=m))
-    res["k2_b_reverse_output_ms"] = output_stage_ms(
-        lambda: biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m))
+        ss, y1, z0, reverse=True, n_eff=m), reps=10, warmup=2)
+    res["k2_b_reverse_output_ms"] = device_ms(
+        lambda: biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m),
+        "output")
     del xe, y1
     res["path_b_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     print(json.dumps(res), flush=True)
