@@ -200,7 +200,9 @@ def small_cases(dev):
     for ss in [_blockss(*_stack_cascade(sos, g)) for sos, g in cascades] + [
             _cascade_ss(sos, g) for sos, g in cascades]:
         stage = "F" if ss.sections is None else "SOS"
-        for n, C in [(5003, 3), (4096, 64), (70001, 2)]:
+        # n at 64 rows of 128 (K2's chunk) - 1, + 0, + 1, and ragged
+        for n, C in [(5003, 3), (4096, 64), (70001, 2), (8191, 33),
+                     (8192, 1), (8193, 64), (12289, 5)]:
             x = t(rng.standard_normal((n, C)))
             z0 = t(rng.standard_normal((ss.p, C)))
             compare("biir", biir.blockss_filt(ss, x, z0),
@@ -458,13 +460,15 @@ def k7_args(dev, rate, n, mid_stream, rng):
 
 
 # the __global__ kernels each launch counter stands for (name parts, as
-# torch.profiler reports them); "biir_reverse" counts a subset of biir's
-# calls, so it asks for the same kernels
+# torch.profiler reports them), each launched once a counted call; K2's
+# are its SOS route's (every K2 call on the paths runs a cascade);
+# "biir_reverse" counts a subset of biir's calls, so it asks for the same
+# kernels
+K2_STAGES = ("chunk_reduce_kernel", "carry_kernel",
+             "chunk_scan_sos_output_kernel")
 DEVICE_KERNELS = {
     "fir": ("fir_kernel",), "stft": ("stft_kernel",),
-    "biir": ("inject_kernel", "scan_kernel", "carry_kernel", "output"),
-    "biir_reverse": ("inject_kernel", "scan_kernel", "carry_kernel",
-                     "output"),
+    "biir": K2_STAGES, "biir_reverse": K2_STAGES,
     "osconv": ("osconv_kernel",), "levinson": ("levinson_kernel",),
     "pfb2": ("pfb2_kernel",), "arbd": ("arbd_kernel",)}
 
@@ -500,10 +504,10 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
     """Device time by kernel per call of a path (torch.profiler over
     CALLS_PROFILED calls), and its share of call_ms, the call's
     unprofiled time. Every kernel that `counts` (the launch counters of
-    the path's run) says was launched must have a device record, and a
-    wrapper that launches one kernel a call one record for each launch
-    in the profiled calls: the profile is taken again once if one is
-    missing, and the run fails if it is still missing."""
+    the path's run) says was launched must have one device record for
+    each launch in the profiled calls: the profile is taken again once
+    if one is missing, and the run fails if it is still missing. Logs
+    K2's device time per pass by stage where the path ran K2."""
     import torch
     from torch.autograd import DeviceType
     forward(x)
@@ -517,8 +521,7 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
         missing = [w for w in want
                    if not any(w in e.key for e in dev_events)]
         missing += [f"{c * CALLS_PROFILED} x {w}"
-                    for name, c in counts.items()
-                    if c and len(DEVICE_KERNELS[name]) == 1
+                    for name, c in counts.items() if c
                     for w in DEVICE_KERNELS[name]
                     if sum(e.count for e in dev_events if w in e.key)
                     < c * CALLS_PROFILED]
@@ -536,6 +539,14 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
         ms = sum(e.self_device_time_total for e in dev_events
                  if w in e.key) / 1e3 / CALLS_PROFILED
         log(f"  device time of {w} per call: {ms:.4f} ms")
+    if counts.get("biir"):
+        stage_ms = {w: sum(e.self_device_time_total for e in dev_events
+                           if w in e.key) / 1e3 / CALLS_PROFILED
+                    / counts["biir"] for w in K2_STAGES}
+        log(f"profile ({label}): K2 device time per pass by stage: "
+            + ", ".join(f"{w} {ms:.4f} ms" for w, ms in stage_ms.items())
+            + f", sum {sum(stage_ms.values()):.4f} ms ({counts['biir']} "
+            "passes a call)")
     # device-side events only: a torch op's own entry repeats the time
     # of the kernels it launched
     busy_ms = sum(e.self_device_time_total
@@ -1119,9 +1130,10 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
-    if any(f.startswith("pfb2:") for f in framed):
-        raise AssertionError("pfb2: a tap template keeps registers in a "
-                             "stack frame")
+    for name in ("pfb2", "biir"):
+        if any(f.startswith(f"{name}:") for f in framed):
+            raise AssertionError(f"{name}: a template keeps registers in a "
+                                 "stack frame")
     log("kernels to build and check: " + ", ".join(_build.SOURCES))
 
     # 3. each kernel against its plain version, small ragged shapes
@@ -1173,6 +1185,7 @@ def main():
     y2 = biir.blockss_filt(ss, y1, z0)
     err = compare("biir", y2, biir.blockss_reference(ss, y1, z0),
                   "main path")
+    exact("biir", biir.blockss_filt(ss, y1, z0), y2, "main path twice")
     # the cascade's own work: 5 multiply-adds per section per sample
     flops = 10 * sos_np.shape[0] * n * C
     rows.append(dict(

@@ -9,6 +9,8 @@ float32 or float64 arrays. Tolerances: max|d| <= 1e-10 max|ref| in
 float64, <= 1e-4 max|ref| in float32 (bench.py's IIR bound: the
 recurrence accumulates f32 error)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -269,3 +271,171 @@ def test_k2_plain_of_cascade_ss_matches_pallas_interpret(n, C, reverse):
     got = tbiir.blockss_filt(tss, torch.as_tensor(x), torch.as_tensor(z0),
                              reverse=reverse)
     check(got, want, 1e-4)
+
+
+def _k2_geometry(C, L, nchunks):
+    """csrc/biir.cu's run(): channel group cw, row group RG, segments S of
+    16 samples, tile TS, and the carry's NG groups of GL chunk ends."""
+    cw = 1
+    while cw < C and cw < 32:
+        cw *= 2
+    RG = min(L, 256 // cw)
+    S = 256 // (RG * cw)
+    NG = min(256, math.ceil(math.sqrt(2.0 * nchunks)))
+    GL = -(-nchunks // NG)
+    return cw, RG, S, 16 * S, -(-nchunks // GL), GL
+
+
+def _emulate_k2_launches(ss, x, z0, need_state=False, reverse=False,
+                         n_eff=None, L=tbiir._CHUNK):
+    """K2's three launches (csrc/biir.cu) in numpy float64, walked as the
+    kernels walk: (1) chunk_reduce per (chunk, channel group): x tiles of
+    RG rows x TS samples (zeros past n), each thread's 16-sample segment
+    summed into U_b = K X_b, segments added in order, then the chunk's
+    end state from zero E_j; (2) carry: the chunk ends in NG groups of GL,
+    each group from zero, the groups' entering states in series with
+    (AV^L)^GL, each group again from its entering state -> zin[j];
+    (3) per chunk from zin[j], each row's entering state z_{b-1} (and the
+    state after row `brow`), then the cascade per row (a system with
+    sections) or F X_b + G z_{b-1}. Reverse runs in virtual time t' and
+    reads and writes sample tbase - t'. Returns y (n, C) in memory order,
+    or (y, z_final) with need_state."""
+    V, p = ss.V, ss.p
+    n = x.shape[0] if n_eff is None else n_eff
+    C = x.shape[1]
+    tbase = n - 1 if reverse else -1
+
+    def row_of(t):
+        return t if tbase < 0 else tbase - t
+    B = -(-n // V)
+    nch = -(-B // L)
+    cw, RG, S, TS, NG, GL = _k2_geometry(C, L, nch)
+    AV = ss.AV
+    AVL = np.linalg.matrix_power(AV, L)
+    U = np.full((B, p, C), np.nan)
+    E = np.full((nch, p, C), np.nan)
+    for j in range(nch):
+        for cb in range(0, C, cw):
+            ch = np.arange(cb, min(cb + cw, C))
+            z = np.zeros((p, len(ch)))
+            for g in range(L // RG):
+                b0 = j * L + g * RG
+                acc = np.zeros((S, RG, p, len(ch)))
+                for k in range(V // TS):
+                    t = ((b0 + np.arange(RG))[:, None] * V + k * TS
+                         + np.arange(TS)[None, :])
+                    tile = np.zeros((RG, TS, len(ch)))
+                    ok = t < n
+                    tile[ok] = x[row_of(t[ok])][:, ch]
+                    for seg in range(S):
+                        u = k * TS + seg * 16 + np.arange(16)
+                        acc[seg] += np.einsum(
+                            "au,ruc->rac", ss.K[:, u],
+                            tile[:, seg * 16: seg * 16 + 16])
+                Ug = acc[0]
+                for seg in range(1, S):
+                    Ug = Ug + acc[seg]
+                for r in range(RG):
+                    if b0 + r >= B:
+                        break
+                    U[b0 + r][:, ch] = Ug[r]
+                    z = AV @ z + Ug[r]
+            E[j][:, ch] = z
+    T = []
+    for g in range(NG - 1):
+        s = np.zeros((p, C))
+        for j in range(g * GL, (g + 1) * GL):
+            s = AVL @ s + E[j]
+        T.append(s)
+    M = np.linalg.matrix_power(AVL, GL)
+    Sg = [z0]
+    for g in range(NG - 1):
+        Sg.append(M @ Sg[-1] + T[g])
+    zin = np.full((nch, p, C), np.nan)
+    for g in range(NG):
+        s = Sg[g]
+        for j in range(g * GL, min(nch, (g + 1) * GL)):
+            zin[j] = s
+            s = AVL @ s + E[j]
+    brow = n // V - 1 if need_state else -1
+    Z = np.full((B, p, C), np.nan)
+    zrow = None
+    for j in range(nch):
+        z = zin[j]
+        for b in range(j * L, min(B, j * L + L)):
+            Z[b] = z
+            z = AV @ z + U[b]
+            if b == brow:
+                zrow = z
+    X = np.zeros((B * V, C))
+    X[:n] = x[row_of(np.arange(n))]
+    X = X.reshape(B, V, C)
+    if ss.sections is None:
+        Y = (np.einsum("vu,buc->bvc", ss.F, X)
+             + np.einsum("va,bac->bvc", ss.G, Z))
+    else:
+        sos, gain = ss.sections
+        s = Z.reshape(B, len(sos), 2, C).copy()
+        Y = np.empty_like(X)
+        for v in range(V):
+            w = X[:, v]
+            for k, (c0, c1, c2, a1, a2) in enumerate(sos):
+                yk = c0 * w + s[:, k, 0]
+                s[:, k, 0] = s[:, k, 1] + c1 * w - a1 * yk
+                s[:, k, 1] = c2 * w - a2 * yk
+                w = yk
+            Y[:, v] = gain * w
+    y = np.empty((n, C))
+    y[row_of(np.arange(n))] = Y.reshape(B * V, C)[:n]
+    if not need_state:
+        return y
+    zf = tbiir._advance_tail(ss, torch.as_tensor(zrow), torch.as_tensor(x),
+                             n)
+    return y, zf.numpy()
+
+
+# (order, n, C) for each mode: n at 64·128·k - 1, k, + 1 (K2's chunk is
+# 64 rows) and below 64·128; C 1, 3, 33, 64; p 2, 8, 20, 32 (tables
+# padded to 8, 16, 32). need_state: brow = n // 128 - 1 ends a chunk at
+# n = 8192 and 8193, lies inside one at 8191 and 3001.
+K2_WALK = {
+    "forward": [(8, 8191, 64), (2, 8193, 3), (20, 3001, 33), (32, 8192, 1)],
+    "need_state": [(8, 8192, 3), (8, 8191, 33), (32, 8193, 64),
+                   (2, 3001, 1)],
+    "reverse": [(8, 8193, 1), (20, 8191, 64), (2, 3001, 3), (32, 8192, 33)],
+    "n_eff": [(8, 12289, 3), (20, 8193, 33), (32, 3001, 64), (2, 8191, 1)],
+}
+
+
+@pytest.mark.parametrize("route", ["sections", "F"])
+@pytest.mark.parametrize("mode,order,n,C", [
+    (mode, *case) for mode, cases in K2_WALK.items() for case in cases])
+def test_k2_three_launch_walk_emulated(mode, order, n, C, route):
+    """The emulated walk of K2's three launches against the plain version
+    (what the wrapper runs on a CPU tensor) and dsptpu's Pallas kernel in
+    interpret mode, both within 1e-4, in each mode, on both output routes
+    (the cascade per row for a system with sections, F X + G z for one
+    without)."""
+    sos = butter_sos(order, 0.3)
+    arr, g = sos.sos_array(), sos.g
+    tss = (_cascade_ss(arr, 1.3 * g) if route == "sections"
+           else _blockss(*_stack_cascade(arr, 1.3 * g)))
+    jss = jax_blockss(*jax_stack(arr, 1.3 * g))
+    assert tss.p == order
+    rng = np.random.default_rng(n + C + order)
+    x = rng.standard_normal((n, C)).astype(np.float32)
+    z0 = rng.standard_normal((tss.p, C)).astype(np.float32)
+    kw = dict(need_state=mode == "need_state",
+              reverse=mode in ("reverse", "n_eff"),
+              n_eff=(n // 128) * 128 if mode == "n_eff" else None)
+    got = _emulate_k2_launches(tss, x.astype(np.float64),
+                               z0.astype(np.float64), **kw)
+    plain = tbiir.blockss_filt(tss, torch.as_tensor(x), torch.as_tensor(z0),
+                               **kw)
+    want = blockss_filt_pallas(jss, jnp.asarray(x), jnp.asarray(z0), TB=4,
+                               interpret=True, **kw)
+    if not kw["need_state"]:
+        got, plain, want = (got,), (plain,), (want,)
+    for gt, pl, w in zip(got, plain, want):
+        check(gt, pl.numpy(), 1e-4)
+        check(gt, w, 1e-4)

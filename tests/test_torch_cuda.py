@@ -635,3 +635,70 @@ def test_matmul_routes_keep_full_f32_under_tf32(dev, call):
     finally:
         torch.set_float32_matmul_precision(prev)
     check(got, run(x.double()), 3e-5)
+
+
+def _k2_system(order, route):
+    sos = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.3), dsptpu_torch.Butterworth(order)))
+    arr, g = sos.sos_array(), 1.3 * sos.g
+    return (_cascade_ss(arr, g) if route == "sections"
+            else _blockss(*_stack_cascade(arr, g)))
+
+
+def _k2_kw(mode, n):
+    return dict(need_state=mode == "need_state",
+                reverse=mode in ("reverse", "n_eff"),
+                n_eff=(n // 128) * 128 if mode == "n_eff" else None)
+
+
+@pytest.mark.parametrize("route", ["sections", "F"])
+@pytest.mark.parametrize("mode", ["forward", "need_state", "reverse",
+                                  "n_eff"])
+@pytest.mark.parametrize("order,n,C", [(8, 8191, 33), (20, 8192, 3),
+                                       (32, 8193, 1), (2, 3001, 64),
+                                       (8, 12289, 64)])
+def test_biir_chunk_boundaries_match_plain(dev, order, n, C, mode, route):
+    """K2 at n = 64·128·k - 1, k, + 1 (the chunk of 64 rows) and below
+    one chunk, C 1, 3, 33, 64, p 2, 8, 20, 32, both output routes, in
+    each mode (need_state's row ends a chunk at 8192 and 8193, lies
+    inside one at 8191, 3001 and 12289)."""
+    ss = _k2_system(order, route)
+    x, z0 = randn(dev, n, C, seed=n + C), randn(dev, ss.p, C, seed=order)
+    kw = _k2_kw(mode, n)
+    got = launched_once("biir", lambda: biir.blockss_filt(ss, x, z0, **kw))
+    want = biir.blockss_reference(ss, x, z0, **kw)
+    pairs = zip(got, want) if kw["need_state"] else [(got, want)]
+    for g, w in pairs:
+        check(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["forward", "need_state", "n_eff"])
+def test_biir_kernel_main_path_shape(dev, mode):
+    """K2 at the main path's full shape (1,000,000 x 64, the 8th-order
+    Butterworth cascade with its sections) against the plain version."""
+    from dsptpu_torch.pipeline import chain_params
+    ss = _cascade_ss(chain_params()[1].astype(np.float64), 1.0)
+    n, C = 1_000_000, 64
+    x, z0 = randn(dev, n, C, seed=5), randn(dev, ss.p, C, seed=6)
+    kw = _k2_kw(mode, n)
+    got = launched_once("biir", lambda: biir.blockss_filt(ss, x, z0, **kw))
+    want = biir.blockss_reference(ss, x, z0, **kw)
+    pairs = zip(got, want) if kw["need_state"] else [(got, want)]
+    for g, w in pairs:
+        check(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("route", ["sections", "F"])
+@pytest.mark.parametrize("mode", ["forward", "need_state", "n_eff"])
+def test_biir_kernel_repeats_bit_for_bit(dev, mode, route):
+    """Two K2 calls on the same input give identical tensors: every fold
+    (chunk ends, the carry's groups, the rows) runs in a fixed order."""
+    ss = _k2_system(8, route)
+    n, C = 300_001, 64
+    x, z0 = randn(dev, n, C, seed=7), randn(dev, ss.p, C, seed=8)
+    kw = _k2_kw(mode, n)
+    a = biir.blockss_filt(ss, x, z0, **kw)
+    b = biir.blockss_filt(ss, x, z0, **kw)
+    torch.cuda.synchronize()
+    for u, v in (zip(a, b) if kw["need_state"] else [(a, b)]):
+        assert torch.equal(u, v)

@@ -4,6 +4,7 @@ checkouts can be compared in one call (parent, change, change, parent).
 """
 
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,12 +53,24 @@ def time_ms(fn, reps, warmup, inner=1):
     return statistics.median(ts)
 
 
-def device_ms(fn, name="", calls=1):
-    """Device time per call of fn of the kernels whose name holds `name`
-    (every kernel for ""), by torch.profiler over `calls` calls after one
-    unprofiled call. The window starts with a spin kernel of about a
-    millisecond, left out of the sum: the device records of a window's
-    first fraction of a millisecond can go missing."""
+def ptxas_lines(source):
+    """The `-Xptxas -v` lines (entries, registers, stack frames) of kernel
+    source `source` from the build log of the package imported last."""
+    from dsptpu_torch.kernels import _build
+    log = os.path.join(os.path.dirname(_build.build_all()[source]),
+                       f"{source}.log")
+    return [line.strip() for line in open(log)
+            if "Compiling entry" in line or "registers" in line
+            or "stack frame" in line]
+
+
+def device_ms_by_kernel(fn, name="", calls=1):
+    """Device time per call of fn, {kernel name: ms}, of the kernels whose
+    name holds `name` (every kernel for ""), by torch.profiler over
+    `calls` calls after one unprofiled call. The window starts with a
+    spin kernel of about a millisecond, left out of the sum: the device
+    records of a window's first fraction of a millisecond can go
+    missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -68,7 +81,18 @@ def device_ms(fn, name="", calls=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and "spin" not in e.key
-               and name in e.key) / 1e3 / calls
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and "spin" not in e.key and name in e.key):
+            m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
+            key = m.group(1) if m else e.key[:60]
+            out[key] = out.get(key, 0.0) + (
+                e.self_device_time_total / 1e3 / calls)
+    return out
+
+
+def device_ms(fn, name="", calls=1):
+    """The sum of device_ms_by_kernel: device time per call of fn of the
+    kernels whose name holds `name`."""
+    return sum(device_ms_by_kernel(fn, name, calls).values())

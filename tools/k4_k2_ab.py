@@ -10,16 +10,30 @@ forward at the main path's shapes (the 8th-order Butterworth cascade
 over 1,000,000 x 64, as sosfilt builds it) and K2 forward and reverse
 (n_eff) at path B's (filtfilt's two passes over the same stream), the
 device time of K2's output stage in one forward call (torch.profiler:
-the kernels whose name holds "output"), and entry(), fftfilt_entry() and
-filtfilt_lpc_entry() end to end. Prints the card (nvidia-smi name and
-power limit) and one JSON line. To compare two checkouts, run it on both
-in one call, in the order parent, change, change, parent.
+the kernels whose name holds "output"), K2's device time per
+`__global__` kernel of csrc/biir.cu in one call of each of those three
+passes (so that builds with different kernels read side by side) and
+their sum, and entry(), fftfilt_entry() and filtfilt_lpc_entry() end to
+end. Prints the card (nvidia-smi name and power limit), the `-Xptxas
+-v` lines of biir.cu and one JSON line. To compare two checkouts, run
+it on both in one call, in the order parent, change, change, parent.
 """
 
 import importlib
 import json
+import re
 
-from ab_common import device_ms, open_root, time_ms
+from ab_common import (device_ms, device_ms_by_kernel, open_root,
+                       ptxas_lines, time_ms)
+
+
+def k2_stages(fn):
+    """K2's device ms per call by `__global__` kernel of biir.cu (the
+    templates `name<P>`), and their sum under "total"."""
+    ms = {k: v for k, v in device_ms_by_kernel(fn, calls=5).items()
+          if re.fullmatch(r"\w+_kernel<\d+>", k)}
+    ms["total"] = sum(ms.values())
+    return ms
 
 
 def main():
@@ -36,6 +50,8 @@ def main():
     cascade = getattr(filt, "_cascade_ss", None) or (
         lambda sos, g: filt._blockss(*filt._stack_cascade(sos, g)))
     res = {"root": root}
+    for line in ptxas_lines("biir"):
+        print(f"biir ptxas: {line}", flush=True)
 
     forward, (x,) = dsptpu_torch.fftfilt_entry(device="cuda")
     h = torch.as_tensor(fftfilt_taps(), device=dev)
@@ -55,6 +71,7 @@ def main():
                                 reps=10, warmup=2)
     res["k2_main_output_ms"] = device_ms(
         lambda: biir.blockss_filt(ss, x, z0), "output")
+    res["k2_main_stages"] = k2_stages(lambda: biir.blockss_filt(ss, x, z0))
     res["main_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     del forward, x
     torch.cuda.empty_cache()
@@ -70,12 +87,16 @@ def main():
     z0 = torch.zeros((ss.p, C), device=dev)
     res["k2_b_forward_ms"] = time_ms(
         lambda: biir.blockss_filt(ss, xe, z0), reps=10, warmup=2)
+    res["k2_b_forward_stages"] = k2_stages(
+        lambda: biir.blockss_filt(ss, xe, z0))
     y1 = biir.blockss_filt(ss, xe, z0)
     res["k2_b_reverse_ms"] = time_ms(lambda: biir.blockss_filt(
         ss, y1, z0, reverse=True, n_eff=m), reps=10, warmup=2)
     res["k2_b_reverse_output_ms"] = device_ms(
         lambda: biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m),
         "output")
+    res["k2_b_reverse_stages"] = k2_stages(lambda: biir.blockss_filt(
+        ss, y1, z0, reverse=True, n_eff=m))
     del xe, y1
     res["path_b_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     print(json.dumps(res), flush=True)
