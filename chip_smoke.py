@@ -386,10 +386,11 @@ def small_cases(dev):
             compare("pfb2", y[fin], yr[fin], what + f", {int((~fin).sum())} "
                     f"non-finite as in the plain version")
     for rate in (0.9997, 0.99999, 0.999):
-        for mid in (False, True):
-            a = k7_args(dev, rate, 40037, mid, rng)
-            compare("arbd", arbd.arbd(*a), arbd.arbd_reference(*a),
-                    f"rate={rate} n=40037 {'mid-stream' if mid else 'fresh'}")
+        for mid in (False, True, "J0"):
+            a, plan = k7_args(dev, rate, 40037, mid, rng)
+            compare("arbd", arbd.arbd(*a), k7_plain(a, plan),
+                    f"rate={rate} n=40037 "
+                    f"{ {False: 'fresh', True: 'mid-stream'}.get(mid, mid)}")
 
 
 def k6_args(dev, rate, n, history, rng):
@@ -435,28 +436,42 @@ def k6_random_args(dev, taps, L, M, n, history, rng):
 
 
 def k7_args(dev, rate, n, mid_stream, rng):
-    """One arbd call's arguments from FIRArbitrary's host plan at `rate`
-    with resample_filter's float32 taps (nphi 32): fresh, or after a
-    first chunk of 30011 samples, with a random history."""
+    """One arbd call's arguments (the stream's anchor in place of a plan)
+    at `rate` with resample_filter's float32 taps (nphi 32), and the host
+    plan's arrays (FIRArbitrary.plan) for the plain version: fresh, after
+    a first chunk of 30011 samples, or (mid_stream "J0") at J0 >= 10^8,
+    the last two with a random history. Returns (hist, x, anchor, pfb,
+    dpfb, out_len), (end0, phi, alpha)."""
     import torch
     import dsptpu_torch
+    from dsptpu_torch.kernels import arbd
     h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
     f = dsptpu_torch.FIRFilter(h, rate)
     k = f.kernel
-    if mid_stream:
+    hl = f.history_len
+    if mid_stream == "J0":
+        xl = 10 ** 8 + 12345
+        k.commit(xl, arbd.arbd_out_len(k.anchor(hl), xl))
+    elif mid_stream:
         _, _, o1 = k.plan(30011)
         k.commit(30011, o1)
     head, alpha, out_len = k.plan(n)
-    hl = f.history_len
 
     def t(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
     hist = t(rng.standard_normal(hl) if mid_stream else np.zeros(hl),
              np.float32)
-    return (hist, t(rng.standard_normal(n), np.float32),
-            t(hl + head[0] - 1, np.int32), t(head[1], np.int32),
-            t(alpha, np.float32), t(k.pfb_t.T, np.float32),
-            t(k.dpfb_t.T, np.float32), out_len)
+    return ((hist, t(rng.standard_normal(n), np.float32), k.anchor(hl),
+             t(k.pfb_t.T, np.float32), t(k.dpfb_t.T, np.float32), out_len),
+            (t(hl + head[0] - 1, np.int64), t(head[1], np.int64),
+             t(alpha, np.float32)))
+
+
+def k7_plain(args, plan):
+    """K7's plain version on the host plan's arrays for arbd's args."""
+    from dsptpu_torch.kernels import arbd
+    hist, x, _, pfb, dpfb, out_len = args
+    return arbd.arbd_reference(hist, x, *plan, pfb, dpfb, out_len)
 
 
 # the __global__ kernels each launch counter stands for (name parts, as
@@ -794,7 +809,9 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
             bound=bound(4 * (n + out_len), 2 * taps * out_len)))
         report(rows[-1])
 
-    # K7 at 0.9997, fresh stream
+    # K7 at 0.9997, fresh stream: the kernel takes the stream's anchor
+    # and derives its plan on the card; the plain version and the library
+    # call take the host plan's arrays
     ra = RESAMPLE_RATES[2]
     f = fs[ra]
     k = f.kernel
@@ -803,16 +820,48 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
 
     def t(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
-    end0 = t(hl + head[0] - 1, np.int32)
-    phi = t(head[1], np.int32)
+    end0 = t(hl + head[0] - 1, np.int64)
+    phi = t(head[1], np.int64)
     al = t(alpha, np.float32)
     pfb, dpfb = t(k.pfb_t.T, np.float32), t(k.dpfb_t.T, np.float32)
     hist = torch.zeros(hl, device=dev)
-    args = (hist, xa, end0, phi, al, pfb, dpfb, out_len)
-    log(f"  {ra}: {nphi} phases x {W} taps, {out_len} outputs; plan "
-        f"accepted {arbd.arbd_accepts(head[0], out_len, hl + arb_n)}")
-    y = arbd.arbd(*args)
-    err = compare("arbd", y, arbd.arbd_reference(*args), "path C shapes")
+    anchor = k.anchor(hl)
+    args = (hist, xa, anchor, pfb, dpfb, out_len)
+    plain = (hist, xa, end0, phi, al, pfb, dpfb, out_len)
+    log(f"  {ra}: {nphi} phases x {W} taps, {out_len} outputs; {anchor}; "
+        f"gate from the anchor "
+        f"{arbd.arbd_accepts_anchor(anchor, out_len, hl + arb_n)}, on the "
+        f"host plan {arbd.arbd_accepts(head[0], out_len, hl + arb_n)}")
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    y = arbd.arbd(*args, counts=counts)
+    err = compare("arbd", y, arbd.arbd_reference(*plain), "path C shapes")
+    runs = -(-out_len // arbd.RUN)
+    slow, split = counts.tolist()
+    log(f"  arbd: runs of {arbd.RUN} outputs computed one output at a time "
+        f"{slow} of {runs} (share {slow / runs:.3g}); outputs of the "
+        f"split passes {split} of {out_len} (share {split / out_len:.3g})")
+    if slow:
+        raise AssertionError("arbd: runs outside the two-phase geometry "
+                             "under the gate")
+    exact("arbd", arbd.arbd(*args), y, "a second call vs the first")
+    # the on-card plan, bit for bit the host plan, fresh and at J0 >= 1e8
+    g = dsptpu_torch.FIRFilter(np.asarray(dsptpu_torch.resample_filter(ra),
+                                          dtype=np.float32), ra)
+    xl = 10 ** 8 + 12345
+    g.kernel.commit(xl, arbd.arbd_out_len(g.kernel.anchor(hl), xl))
+    ghead, galpha, gout = g.kernel.plan(arb_n)
+    for what, an, want in (
+            ("fresh", anchor, (end0, phi, al)),
+            (f"at J0 {g.kernel._j_total}", g.kernel.anchor(hl),
+             (t(hl + ghead[0] - 1, np.int64), t(ghead[1], np.int64),
+              t(galpha, np.float32)))):
+        e, p, a = arbd.arbd_plan(an, out_len if what == "fresh" else gout,
+                                 dev)
+        exact("arbd", e, want[0], f"plan on the card, end0, {what}")
+        exact("arbd", p.long(), want[1], f"plan on the card, phi, {what}")
+        exact("arbd", a.view(torch.int32), want[2].view(torch.int32),
+              f"plan on the card, alpha bits, {what}")
+    del y, ghead, galpha
 
     def library():
         # every (position, phase) output of both banks by one float32
@@ -822,16 +871,16 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
         with no_tf32():
             z = torch.nn.functional.conv1d(xcat[None, None], both)[0]
         nw = z.shape[1]
-        flat = phi.long() * nw + (end0.long() - (W - 1))
+        flat = phi * nw + (end0 - (W - 1))
         z = z.reshape(-1)
         return z[flat] + al * z[flat + nphi * nw]
-    compare("arbd", library(), y, "all-phase convolution vs kernel")
-    del y
+    compare("arbd", library(), arbd.arbd(*args),
+            "all-phase convolution vs kernel")
     rows.append(dict(
         name="arbd", route="cuda", source="dsptpu_torch/csrc/arbd.cu",
         replaces="dsptpu/kernels/arbd.py:359", max_abs_err=err,
         ms=time_ms(lambda: arbd.arbd(*args), inner=10),
-        plain_ms=time_ms(lambda: arbd.arbd_reference(*args), inner=10),
+        plain_ms=time_ms(lambda: arbd.arbd_reference(*plain), inner=10),
         library_ms=time_ms(library, inner=10),
         bound=bound(4 * (hl + arb_n + out_len), (4 * W + 2) * out_len)))
     report(rows[-1])
@@ -839,6 +888,31 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
     alone.append(time_ms(lambda: arbd.arbd(*args)))
     log("  one call per timed run (the rows above: 10 back to back): "
         + ", ".join(f"{r['name']} {t:.4f} ms" for r, t in zip(rows, alone)))
+    # a new stream state's host time: a fresh FIRFilter's first filt (the
+    # route's decision from the anchor, the banks' upload, one launch),
+    # and a stream of 100,000-sample chunks, by host clock
+    h_a = np.asarray(dsptpu_torch.resample_filter(ra), dtype=np.float32)
+    first = []
+    for _ in range(5):
+        g = dsptpu_torch.FIRFilter(h_a, ra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.filt(xa)
+        torch.cuda.synchronize()
+        first.append((time.perf_counter() - t0) * 1e3)
+    g = dsptpu_torch.FIRFilter(h_a, ra)
+    per_chunk = []
+    for c in torch.split(xa, 100_000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.filt(c)
+        torch.cuda.synchronize()
+        per_chunk.append((time.perf_counter() - t0) * 1e3)
+    log(f"  {ra}: a fresh FIRFilter's first filt of {arb_n} samples "
+        f"{statistics.median(first):.3f} ms (median of 5, host clock); "
+        f"{len(per_chunk)} chunks of 100,000: "
+        f"{statistics.median(per_chunk):.3f} ms a chunk (median; first "
+        f"{per_chunk[0]:.3f}, max {max(per_chunk):.3f})")
 
     # each rate's float32 filter and resample() against float64; the
     # float64 calls take the non-kernel routes
@@ -886,8 +960,8 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
         hist = torch.zeros(hl, device=dev) if f.history is None \
             else f.history
         head, alpha, o = k.plan(c.shape[0])
-        cargs = (hist, c, t(hl + head[0] - 1, np.int32),
-                 t(head[1], np.int32), t(alpha, np.float32), pfb, dpfb, o)
+        cargs = (hist, c, t(hl + head[0] - 1, np.int64),
+                 t(head[1], np.int64), t(alpha, np.float32), pfb, dpfb, o)
         got.append(f.filt(c))
         want.append(arbd.arbd_reference(*cargs))
     if kernels.launch_counts()["arbd"] != 3:
@@ -897,9 +971,7 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
     compare("arbd", got, torch.cat(want),
             f"{ra} in 3 chunks vs plain on the same chunks")
     one = f.reset().filt(xa)
-    log(f"  {ra} in 3 chunks equals one-shot bit for bit: "
-        f"{bool(torch.equal(got, one))}")
-    compare("arbd", got, one, f"{ra} in 3 chunks vs one-shot")
+    exact("arbd", got, one, f"{ra} in 3 chunks vs one-shot")
     del got, want, one
 
     # the path through its entry point
@@ -1122,7 +1194,7 @@ def main():
                 if "Compiling entry" in line:
                     entry = line.split("'")[1] if "'" in line else line
                 if ("registers" in line or "spill" in line.lower()
-                        or (name in ("stft", "osconv", "biir", "pfb2")
+                        or (name in ("stft", "osconv", "biir", "pfb2", "arbd")
                             and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
                 if ("bytes stack frame" in line and not
@@ -1130,7 +1202,7 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
-    for name in ("pfb2", "biir"):
+    for name in ("pfb2", "biir", "arbd"):
         if any(f.startswith(f"{name}:") for f in framed):
             raise AssertionError(f"{name}: a template keeps registers in a "
                                  "stack frame")

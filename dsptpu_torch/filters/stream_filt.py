@@ -19,7 +19,8 @@ Device routes, in the order `FIRFilter.filt` tries them:
 * rational, interpolating and decimating streams, 1-D real float32:
   K6 (kernels/pfb2.py, csrc/pfb2.cu) where dsptpu's pfb2 gate holds;
 * arbitrary rate, 1-D real float32: K7 (kernels/arbd.py, csrc/arbd.cu)
-  where dsptpu's arbd gate and plan checks accept;
+  where dsptpu's arbd gate and plan checks accept, decided from the
+  stream's anchor; the kernel derives its plan on the card;
 * otherwise the block matmul (`_block_matmul`, torch.matmul in full
   float32) for rational rates, `_pfb_dot_arb` for arbitrary rates and
   dspbase.filt for single-rate filters.
@@ -395,6 +396,17 @@ class FIRArbitrary:
         self.input_deficit = 1
         self._anchor()
 
+    def anchor(self, history_len):
+        """The closed form at the current state, as K7 takes it
+        (kernels/arbd.Anchor): output j of the next call ends its window
+        at end_off + floor((acc_base + (j0 + j) delta) / nphi) in
+        history ‖ x, where history holds history_len samples."""
+        return _arbd.Anchor(
+            float(self._acc_base), float(self.delta), int(self.nphi),
+            int(self._j_total),
+            int(history_len + self._deficit_base - self._consumed_total - 1),
+            int(history_len))
+
     def plan(self, xlen):
         if xlen < self.input_deficit:
             return None, None, 0
@@ -693,9 +705,14 @@ class FIRFilter:
         return G, s0, B, M, W, out_len
 
     def _filt_arbitrary(self, k, x, xlen):
-        """Arbitrary rate: the host plan (cached per stream state), then
-        K7 where dsptpu's arbd gate and plan checks accept, else
-        _pfb_dot_arb. Returns (y, out_len, xcat or None)."""
+        """Arbitrary rate: K7 where the stream is 1-D float32 with real
+        taps and dsptpu's arbd gate and plan checks accept, else the host
+        plan and _pfb_dot_arb. The kernel route builds nothing per output
+        on the host: it hands the kernel the stream's anchor (the plan's
+        closed form, derived on the card), and finds the output count
+        and the plan checks from that closed form at a few outputs. The
+        decision, and the other routes' host plan, are cached per stream
+        state. Returns (y, out_len, xcat or None)."""
         # the plan key includes the stream-global anchor counters:
         # (deficit, phi_accumulator) alone is not a complete state under
         # the global-index plan (a chunk that ends exactly on a phase
@@ -704,25 +721,28 @@ class FIRFilter:
                k._consumed_total, x.dtype, str(x.device), x.ndim == 1)
         cache = getattr(k, "_plan_cache", None)
         if cache is None or cache[0] != key:
-            head, alpha, out_len = k.plan(xlen)
-            dev = None
-            use_kernel = False
-            if out_len:
-                x_idx, phi_idx = head[0], head[1]
-                adt = (x.dtype if x.dtype.is_floating_point
-                       else torch.float32)
-                end0 = self.history_len + x_idx - 1   # 0-based in xcat
-                dev = tuple(torch.as_tensor(a).to(x.device) for a in (
-                    end0.astype(np.int32), phi_idx.astype(np.int32)))
-                dev += (torch.as_tensor(alpha).to(device=x.device,
-                                                  dtype=adt),)
-                use_kernel = (
-                    x.ndim == 1 and x.dtype == torch.float32
+            dev, out_len, use_kernel = None, 0, False
+            if (x.ndim == 1 and x.dtype == torch.float32
                     and not np.iscomplexobj(k.pfb_t)
                     and _arbd.arbd_supported(k.nphi, k.taps_per_phi,
-                                             torch.float32)
-                    and _arbd.arbd_accepts(x_idx, out_len,
-                                           self.history_len + xlen))
+                                             torch.float32)):
+                dev = k.anchor(self.history_len)
+                out_len = (0 if xlen < k.input_deficit
+                           else _arbd.arbd_out_len(dev, xlen))
+                use_kernel = bool(out_len) and _arbd.arbd_accepts_anchor(
+                    dev, out_len, self.history_len + xlen)
+            if not use_kernel:
+                head, alpha, out_len = k.plan(xlen)
+                dev = None
+                if out_len:
+                    x_idx, phi_idx = head[0], head[1]
+                    adt = (x.dtype if x.dtype.is_floating_point
+                           else torch.float32)
+                    end0 = self.history_len + x_idx - 1   # 0-based in xcat
+                    dev = tuple(torch.as_tensor(a).to(x.device) for a in (
+                        end0.astype(np.int32), phi_idx.astype(np.int32)))
+                    dev += (torch.as_tensor(alpha).to(device=x.device,
+                                                      dtype=adt),)
             cache = k._plan_cache = (key, dev, out_len, use_kernel)
         _, dev, out_len, use_kernel = cache
         if not out_len:
@@ -735,8 +755,7 @@ class FIRFilter:
             dpfb = _dev_copy(k, "_dpfb_dev", k.dpfb_t.T, torch.float32,
                              x.device)
             hist = self.history if self.history_len else None
-            y = _arbd.arbd(hist, x.contiguous(), dev[0], dev[1], dev[2],
-                           pfb, dpfb, out_len)
+            y = _arbd.arbd(hist, x.contiguous(), dev, pfb, dpfb, out_len)
             return y, out_len, None
         xcat = (torch.cat([self.history, x], 0) if self.history_len
                 else x)

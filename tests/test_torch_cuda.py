@@ -325,33 +325,111 @@ def test_pfb2_kernel_nonfinite_input(dev, taps, L, M, history):
 
 
 def k7_args(dev, rate, n, mid_stream, seed=0):
-    """One arbd call's arguments from FIRArbitrary's host plan, fresh or
-    after a first chunk of 30011 samples (random history)."""
+    """One arbd call's arguments, the stream's anchor in place of a plan,
+    and the host plan's arrays for the plain version: fresh, after a
+    first chunk of 30011 samples, or at J0 >= 10^8 (a stream advanced by
+    10^8 + 12345 samples), the last two with a random history. Returns
+    (hist, x, anchor, pfb, dpfb, out_len) and (end0, phi, alpha)."""
     h = np.asarray(dsptpu_torch.resample_filter(rate), dtype=np.float32)
     f = dsptpu_torch.FIRFilter(h, rate)
     k = f.kernel
-    if mid_stream:
+    hl = f.history_len
+    if mid_stream == "J0":
+        xl = 10 ** 8 + 12345
+        k.commit(xl, arbd.arbd_out_len(k.anchor(hl), xl))
+    elif mid_stream:
         _, _, o1 = k.plan(30011)
         k.commit(30011, o1)
     head, alpha, out_len = k.plan(n)
-    hl = f.history_len
     hist = randn(dev, hl, seed=seed + 1) if mid_stream else torch.zeros(
         hl, device=dev)
 
     def t(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
-    return (hist, randn(dev, n, seed=seed),
-            t(hl + head[0] - 1, np.int32), t(head[1], np.int32),
-            t(alpha, np.float32), t(k.pfb_t.T, np.float32),
-            t(k.dpfb_t.T, np.float32), out_len)
+    return ((hist, randn(dev, n, seed=seed), k.anchor(hl),
+             t(k.pfb_t.T, np.float32), t(k.dpfb_t.T, np.float32), out_len),
+            (t(hl + head[0] - 1, np.int64), t(head[1], np.int64),
+             t(alpha, np.float32)))
 
 
-@pytest.mark.parametrize("mid_stream", [False, True])
+def k7_plain(args, plan):
+    hist, x, _, pfb, dpfb, out_len = args
+    return arbd.arbd_reference(hist, x, *plan, pfb, dpfb, out_len)
+
+
+@pytest.mark.parametrize("mid_stream", [False, True, "J0"])
 @pytest.mark.parametrize("rate", [0.9997, 0.99999, 0.999])
 def test_arbd_kernel_matches_plain(dev, rate, mid_stream):
-    args = k7_args(dev, rate, 40037, mid_stream)
-    y = launched_once("arbd", lambda: arbd.arbd(*args))
-    check(y, arbd.arbd_reference(*args), 3e-5)
+    """K7 from the anchor against the plain version on the host plan;
+    no run computed one output at a time (the gate accepts); a second
+    call equal bit for bit."""
+    args, plan = k7_args(dev, rate, 40037, mid_stream)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    y = launched_once("arbd", lambda: arbd.arbd(*args, counts=counts))
+    check(y, k7_plain(args, plan), 3e-5)
+    assert counts[0].item() == 0
+    assert torch.equal(y, arbd.arbd(*args))
+
+
+@pytest.mark.parametrize("mid_stream", [False, "J0"])
+def test_arbd_kernel_full_shape(dev, mid_stream):
+    """K7 at path C's shapes (2,500,000 samples at 0.9997), fresh and at
+    J0 >= 10^8: the plain version's result, no run computed one output
+    at a time, repeats bit for bit."""
+    args, plan = k7_args(dev, 0.9997, 2_500_000, mid_stream)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    y = launched_once("arbd", lambda: arbd.arbd(*args, counts=counts))
+    check(y, k7_plain(args, plan), 3e-5)
+    assert counts[0].item() == 0
+    assert torch.equal(y, arbd.arbd(*args))
+
+
+@pytest.mark.parametrize("rate", [0.9, 0.5, 1.0003])
+def test_arbd_kernel_off_the_gate(dev, rate):
+    """Anchors the gate rejects still give the plain version's result:
+    at 0.9 (a phase every 3 outputs) and 1.0003 (duplicates) runs are
+    computed one output at a time, at 0.5 a tile's windows exceed its
+    buffer and are read from global memory."""
+    args, plan = k7_args(dev, rate, 40037, True)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    y = launched_once("arbd", lambda: arbd.arbd(*args, counts=counts))
+    check(y, k7_plain(args, plan), 3e-5)
+    assert counts[0].item() > 0
+
+
+@pytest.mark.parametrize("mid_stream", [False, True, "J0"])
+@pytest.mark.parametrize("rate", [0.9997, 0.999])
+def test_arbd_plan_on_card_is_the_host_plan(dev, rate, mid_stream):
+    """The plan-only launch (the kernel's own closed form) equals
+    FIRArbitrary.plan bit for bit, and counts no K7 launch."""
+    args, (end0, phi, alpha) = k7_args(dev, rate, 40037, mid_stream)
+    before = kernels.launch_counts()["arbd"]
+    e, p, a = arbd.arbd_plan(args[2], args[5], dev)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["arbd"] == before
+    assert torch.equal(e, end0) and torch.equal(p.long(), phi)
+    assert torch.equal(a.view(torch.int32), alpha.view(torch.int32))
+
+
+def test_arbd_route_builds_no_host_plan(dev, monkeypatch):
+    """A CUDA float32 stream at 0.9997 runs K7 with FIRArbitrary.plan
+    made to raise: the route builds no host plan, one shot or in chunks,
+    and its result equals the kernel route's with the plan intact."""
+    from dsptpu_torch.filters import stream_filt
+    h = np.asarray(dsptpu_torch.resample_filter(0.9997), np.float32)
+    x = randn(dev, 110000, seed=3)
+    want = dsptpu_torch.FIRFilter(h, 0.9997).filt(x)
+
+    def no_plan(self, xlen):
+        raise AssertionError("host plan built on the kernel route")
+    monkeypatch.setattr(stream_filt.FIRArbitrary, "plan", no_plan)
+    kernels.reset_launches()
+    assert torch.equal(dsptpu_torch.FIRFilter(h, 0.9997).filt(x), want)
+    f = dsptpu_torch.FIRFilter(h, 0.9997)
+    got = torch.cat([f.filt(c) for c in (x[:36001], x[36001:72007],
+                                         x[72007:])])
+    assert kernels.launch_counts()["arbd"] == 4
+    assert torch.equal(got, want)
 
 
 def test_resampling_kernels_refuse(dev):
@@ -364,14 +442,18 @@ def test_resampling_kernels_refuse(dev):
                   deficit, out_len)
     with pytest.raises(ValueError, match="gate"):    # M + taps - 1 > 896
         pfb2.pfb2(hist, x, pfb, L, 900, phi0, deficit, 10)
-    a = k7_args(dev, 0.9997, 40037, False)
+    a, _ = k7_args(dev, 0.9997, 40037, False)
     with pytest.raises(TypeError):
         arbd.arbd(a[0].double(), a[1].double(), *a[2:])
     with pytest.raises(ValueError):
         arbd.arbd(a[0], a[1][:, None].expand(-1, 2), *a[2:])
     with pytest.raises(ValueError, match="gate"):    # nphi 64
-        wide = a[5].repeat(1, 2).contiguous()
-        arbd.arbd(*a[:5], wide, wide, a[7])
+        wide = a[3].repeat(1, 2).contiguous()
+        arbd.arbd(*a[:2], a[2]._replace(nphi=64), wide, wide, a[5])
+    with pytest.raises(ValueError, match="history"):
+        arbd.arbd(a[0][1:], *a[1:])
+    with pytest.raises(TypeError):
+        arbd.arbd(*a, counts=torch.zeros(2, device=dev))
 
 
 def test_streams_route_through_their_kernels(dev):

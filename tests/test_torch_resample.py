@@ -18,6 +18,7 @@ from fractions import Fraction
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 import jax.numpy as jnp
 
 import dsptpu
@@ -529,6 +530,314 @@ def test_arbd_gates_are_dsptpus():
                                    k.nphi, k.taps_per_phi, xlen)
             assert tarbd.arbd_accepts(head[0], out_len, xlen) == (
                 want is not None), (rate, n, xlen)
+
+
+# -- K7: the anchor (the plan's closed form) and the kernel's walk ---------
+
+def arb_taps(rate):
+    """resample_filter(rate) as float32, rate 1.0 included (taps() gives
+    a 31-tap lowpass there, one tap a phase: no K7)."""
+    return np.asarray(dsptpu.resample_filter(float(rate)), np.float32)
+
+
+def _arb_state(rate, nphi, acc_base, j0, chunks, taps_per_phi=6):
+    """A FIRArbitrary with phase accumulator acc_base, after `chunks`
+    real chunks of 3001 samples and then a jump of about j0 outputs
+    (stream state advanced by commit with the anchor's output count)."""
+    k = tsf.FIRArbitrary(np.hanning(nphi * taps_per_phi), rate, nphi)
+    k.phi_accumulator = float(acc_base)
+    k._anchor()
+    for _ in range(chunks):
+        k.commit(3001, k.plan(3001)[2])
+    if j0:
+        xl = int(j0 / rate)
+        an = k.anchor(5)
+        k.commit(xl, 0 if xl < k.input_deficit
+                 else tarbd.arbd_out_len(an, xl))
+    return k
+
+
+def _plan_matches(k, n, hl=5):
+    """arbd_plan_from_anchor and arbd_out_len against FIRArbitrary.plan,
+    bit for bit: end0 = hl + x_idx - 1, phi, alpha cast to float32."""
+    head, alpha, out_len = k.plan(n)
+    an = k.anchor(hl)
+    got_len = 0 if n < k.input_deficit else tarbd.arbd_out_len(an, n)
+    assert got_len == out_len
+    if out_len:
+        end0, phi, al = tarbd.arbd_plan_from_anchor(an, out_len)
+        assert np.array_equal(end0, hl + head[0] - 1)
+        assert np.array_equal(phi, head[1])
+        assert np.array_equal(al.view(np.int32),
+                              alpha.astype(np.float32).view(np.int32))
+    return out_len
+
+
+@pytest.mark.parametrize("nphi", list(range(4, 33, 4)))
+def test_arbd_plan_from_anchor_is_the_host_plan(nphi):
+    """The closed form K7 evaluates on the card equals FIRArbitrary.plan
+    bit for bit: rates 0.9997, 0.5, 0.75, 0.999999, 1.0, 0.9 and 0.618,
+    random acc_base, fresh, after chunks and at J0 up to 10^8."""
+    rng = np.random.default_rng(nphi)
+    for rate in (0.9997, 0.5, 0.75, 0.999999, 1.0, 0.9, 0.618):
+        for chunks, j0 in ((0, 0), (2, 0), (1, int(rng.integers(10**6,
+                                                                10**8)))):
+            k = _arb_state(rate, nphi, rng.uniform(0, nphi), j0, chunks)
+            assert _plan_matches(k, 4099) > 0
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(nphi=st.sampled_from(list(range(4, 33, 4))),
+       rate=st.one_of(st.floats(0.9988, 1.0), st.sampled_from([0.5, 0.75])),
+       frac=st.floats(0.0, 1.0, exclude_max=True),
+       j0=st.integers(0, 2 ** 40), chunks=st.integers(0, 2))
+def test_arbd_plan_from_anchor_hypothesis(nphi, rate, frac, j0, chunks):
+    """The same, over drawn nphi (4-32 in steps of 4), rates in [0.9988,
+    1.0] and 0.5, 0.75, acc_base, J0 up to 2^40, fresh or after
+    chunks."""
+    k = _arb_state(rate, nphi, frac * nphi, j0, chunks)
+    _plan_matches(k, 2999)
+
+
+GATE_CASES = [(0.9997, 40000), (0.99999, 40000), (0.999, 40000),
+              (0.9990, 70000), (1.0003, 40000), (1.0, 40000),
+              (0.93, 40000), (0.998, 70000), (0.9997, 30000),
+              (0.9997, 32776), (0.9997, 32777), (0.9997, 32778),
+              (0.99999, 32767), (0.99999, 32768), (0.9988, 40000)]
+
+
+@pytest.mark.parametrize("state", ["fresh", "chunk", "J0 1e8"])
+@pytest.mark.parametrize("rate,n", GATE_CASES)
+def test_arbd_anchor_gate_is_the_array_gate(rate, n, state):
+    """arbd_out_len and arbd_accepts_anchor from the anchor equal the
+    host plan's out_len and arbd_accepts on its x_idx, and dsptpu's
+    arbd_plan, for xlen = history + n and n, with out_len around SEG
+    (32767-32778 samples: 32767-32769 outputs fresh), fresh, after a chunk and at J0 >= 10^8. The
+    closed form decides without host arrays at rates below 1 (0.9997
+    always); rate 1.0 asks for them."""
+    f = tsf.FIRFilter(arb_taps(rate), rate)
+    k = f.kernel
+    hl = f.history_len
+    if state == "chunk":
+        k.commit(30011, k.plan(30011)[2])
+    elif state == "J0 1e8":
+        xl = 10 ** 8 + 12345
+        k.commit(xl, tarbd.arbd_out_len(k.anchor(hl), xl))
+    head, alpha, out_len = k.plan(n)
+    an = k.anchor(hl)
+    assert tarbd.arbd_out_len(an, n) == out_len
+    for xlen in (hl + n, n):
+        tarbd.gate_counts.update(anchor=0, host_arrays=0)
+        got = tarbd.arbd_accepts_anchor(an, out_len, xlen)
+        assert got == tarbd.arbd_accepts(head[0], out_len, xlen)
+        want = jarbd.arbd_plan(head[0], head[1], alpha, out_len, k.nphi,
+                               k.taps_per_phi, xlen)
+        assert got == (want is not None), (rate, n, state, xlen)
+        if out_len >= tarbd.SEG and rate < 1:
+            assert tarbd.gate_counts == {"anchor": 1, "host_arrays": 0}
+        if out_len >= tarbd.SEG and rate == 1.0:
+            assert tarbd.gate_counts["host_arrays"] == 1
+
+
+def test_arbd_route_builds_no_host_plan(monkeypatch):
+    """The kernel route at 0.9997 (a CPU float32 stream, K7's plain
+    version) never calls FIRArbitrary.plan, in one shot or in chunks
+    of at least SEG outputs each,
+    and gives what the host plan gives."""
+    h = taps(0.9997, np.float32)
+    x = signal(13, 110000, np.float32)
+    want = tsf.FIRFilter(h, 0.9997).filt(torch.as_tensor(x))
+    ref = tsf.FIRFilter(h, 0.9997)
+    ref.kernel.plan(len(x))            # the host plan exists here
+    tarbd.gate_counts.update(anchor=0, host_arrays=0)
+
+    def no_plan(self, xlen):
+        raise AssertionError("host plan built on the kernel route")
+    monkeypatch.setattr(tsf.FIRArbitrary, "plan", no_plan)
+    f = tsf.FIRFilter(h, 0.9997)
+    assert torch.equal(f.filt(torch.as_tensor(x)), want)
+    assert f.kernel._plan_cache[3]
+    f = tsf.FIRFilter(h, 0.9997)
+    got = torch.cat([f.filt(torch.as_tensor(c))
+                     for c in np.split(x, [36001, 72007])])
+    assert torch.equal(got, want)
+    assert tarbd.gate_counts["host_arrays"] == 0
+
+
+def emulate_k7(hist, x, anchor, pfb, dpfb, out_len):
+    """float64 numpy emulation of csrc/arbd.cu's walk from the anchor:
+    tiles of 256 R outputs (R = RUN) staging xcat[e_first - (W - 1),
+    e_last + 2) from their first and last outputs' window ends (the whole
+    tile's, past out_len too), NaN past the span and zero outside xcat,
+    or nothing where the span exceeds the buffer. A thread's run of R
+    outputs in the two-phase geometry (phase A, then from the split ks
+    phase B and at most one extra input step) takes the window path for
+    its outputs below ks (slot m's window starts at s0 + m, phase A)
+    and leaves those from ks on to its block's split pass, one output a
+    thread; a run outside it is computed one output at a time. Returns y,
+    the runs computed one output at a time, the outputs of the split
+    passes, the slot window positions the window path read and each
+    tile's staged span."""
+    R, threads = tarbd.RUN, 256
+    tile = threads * R
+    W = pfb.shape[0]
+    cap = tile + tile // 8 + W + 8
+    xcat = np.concatenate([[] if hist is None else hist, x]).astype(
+        np.float64)
+    tiles = -(-out_len // tile)
+    e, ph, al = tarbd.arbd_plan_from_anchor(anchor, tiles * tile)
+    e, ph, al = (a.reshape(tiles * threads, R) for a in (e, ph, al))
+    et = e.reshape(tiles, -1)
+    e_first, e_last = et[:, 0], et[:, -1]
+    base = e_first - (W - 1)
+    span = e_last - e_first + W + 1
+    staged = span <= cap
+    pos = base[:, None] + np.arange(cap)
+    inside = (pos >= 0) & (pos < len(xcat))
+    bufs = np.where(inside, xcat[np.clip(pos, 0, len(xcat) - 1)], 0.0)
+    bufs[np.arange(cap)[None, :] >= span[:, None]] = np.nan
+    run_tile = np.arange(tiles * threads) // threads
+    i0 = np.arange(tiles * threads) * R
+    live = i0 < out_len
+    k = np.arange(R)
+    e0, p0 = e[:, 0], ph[:, 0]
+    isa = ph == p0[:, None]
+    ks = np.where(isa.all(1), R, np.argmin(isa, 1))
+    at = np.minimum(ks, R - 1)
+    rows = np.arange(len(e0))
+    d = e - e0[:, None] - k
+    pb = np.where(ks < R, ph[rows, at], p0)
+    step = np.where(ks < R, d[rows, at], 0)
+    after = k[None, :] >= ks[:, None]
+    ok = (staged[run_tile] & (e0 >= e_first[run_tile])
+          & (e0 + R - 1 <= e_last[run_tile]) & ((step == 0) | (step == 1))
+          & np.where(after, (ph == pb[:, None]) & (d == step[:, None]),
+                     d == 0).all(1))
+    y = np.full(tiles * tile, np.nan).reshape(-1, R)
+    # window path: R slots of phase A, slot m's window at e0 - (W-1) + m;
+    # output k < ks takes slot k
+    f = np.flatnonzero(ok & live)
+    wpos = e0[f, None, None] - (W - 1) + k[None, :, None] + np.arange(W)
+    xw = bufs[run_tile[f, None, None], wpos - base[run_tile[f], None, None]]
+    lo = np.einsum("smt,ts->sm", xw, pfb[:, p0[f]])
+    hi = np.einsum("smt,ts->sm", xw, dpfb[:, p0[f]])
+    y[f] = np.where(after[f], np.nan, lo + al[f] * hi)
+    # the split passes and the runs outside the geometry: one output at
+    # a time, from the span (split passes: always staged) or from xcat
+
+    def one(r, kk):
+        w = e[r, kk] - (W - 1) + np.arange(W)
+        t_ = run_tile[r]
+        if staged[t_]:
+            assert w[0] >= base[t_] and w[-1] < base[t_] + span[t_]
+            xv = bufs[t_, w - base[t_]]
+        else:
+            xv = np.where((w >= 0) & (w < len(xcat)),
+                          xcat[np.clip(w, 0, len(xcat) - 1)], 0.0)
+        return xv @ pfb[:, ph[r, kk]] + al[r, kk] * (xv @ dpfb[:, ph[r, kk]])
+    split = 0
+    for r in f[ks[f] < R]:
+        for kk in range(ks[r], R):
+            if i0[r] + kk < out_len:
+                y[r, kk] = one(r, kk)
+                split += 1
+    slow = np.flatnonzero(~ok & live)
+    for r in slow:
+        for kk in range(R):
+            y[r, kk] = one(r, kk)
+    return (y.reshape(-1)[:out_len], len(slow), split,
+            (run_tile[f], wpos), (base, span, staged))
+
+
+K7_EMU_CASES = [(0.9997, "fresh"), (0.9997, "J0 1e8"), (0.9990, "fresh"),
+                (0.9990, "chunk"), (0.99999, "fresh"), (0.99999, "chunk"),
+                (1.0, "fresh"), (1.0, "chunk"), (0.9, "chunk"),
+                (0.5, "fresh")]
+
+
+@pytest.mark.parametrize("rate,state", K7_EMU_CASES)
+def test_arbd_kernel_walk_emulated(rate, state):
+    """The new K7 walk, emulated in float64 from the anchor, against the
+    plain version on the host plan (3e-5 of max |ref|): every window the
+    window path and the split passes read lies in its tile's staged span
+    (and reads no NaN), and under dsptpu's gate no run is computed one
+    output at a time and the split passes take fewer than R outputs a
+    phase change. 0.9 (gate rejects: a phase every 3 outputs) and 0.5 (a
+    tile's windows exceed the buffer: read from xcat) run one output at a
+    time, still right."""
+    f = tsf.FIRFilter(arb_taps(rate), rate)
+    k = f.kernel
+    hl = f.history_len
+    rng = np.random.default_rng(14)
+    hist = np.zeros(hl, np.float32)
+    if state == "chunk":
+        k.commit(30011, k.plan(30011)[2])
+        hist = rng.standard_normal(hl).astype(np.float32)
+    elif state == "J0 1e8":
+        xl = 10 ** 8 + 12345
+        k.commit(xl, tarbd.arbd_out_len(k.anchor(hl), xl))
+        hist = rng.standard_normal(hl).astype(np.float32)
+    n = 40037
+    x = rng.standard_normal(n).astype(np.float32)
+    head, alpha, out_len = k.plan(n)
+    an = k.anchor(hl)
+    pfb = np.ascontiguousarray(k.pfb_t.T, np.float32)
+    dpfb = np.ascontiguousarray(k.dpfb_t.T, np.float32)
+    y, slow, split, (ft, wpos), (base, span, staged) = emulate_k7(
+        hist, x, an, pfb.astype(np.float64), dpfb.astype(np.float64),
+        out_len)
+    assert np.all(wpos >= base[ft, None, None])
+    assert np.all(wpos < (base + span)[ft, None, None])
+    gate = tarbd.arbd_accepts(head[0], out_len, hl + n)
+    assert gate == (rate in (0.9997, 0.9990, 0.99999, 1.0))
+    if gate:
+        assert slow == 0 and staged.all()
+        # a split pass takes the outputs from each phase change on in a
+        # run: fewer than R for every change (one per nphi / (32 (1 /
+        # rate - 1)) outputs), none at rate 1
+        changes = np.count_nonzero(np.diff(head[1]))
+        assert split < tarbd.RUN * (changes + 1)
+        assert (split == 0) == (rate == 1.0)
+    else:
+        assert slow > 0
+    assert (rate == 0.5) == (not staged.all())
+    want = tarbd.arbd_reference(
+        torch.as_tensor(hist), torch.as_tensor(x),
+        torch.as_tensor(hl + head[0] - 1), torch.as_tensor(head[1]),
+        torch.as_tensor(alpha.astype(np.float32)), torch.as_tensor(pfb),
+        torch.as_tensor(dpfb), out_len)
+    check(torch.as_tensor(y), want.double().numpy(), TOL[np.float32])
+
+
+def test_arbd_wrapper_on_cpu_is_the_plain_version():
+    """On a CPU tensor arbd builds the plan from the anchor and runs
+    arbd_reference: bit for bit the plain version on the host plan;
+    arbd_plan on the CPU is arbd_plan_from_anchor; a history that is not
+    the anchor's is refused."""
+    f = tsf.FIRFilter(taps(0.9997, np.float32), 0.9997)
+    k, hl = f.kernel, f.history_len
+    k.commit(30011, k.plan(30011)[2])
+    rng = np.random.default_rng(15)
+    hist = torch.as_tensor(rng.standard_normal(hl).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal(40037).astype(np.float32))
+    head, alpha, out_len = k.plan(40037)
+    an = k.anchor(hl)
+    pfb = torch.as_tensor(np.ascontiguousarray(k.pfb_t.T, np.float32))
+    dpfb = torch.as_tensor(np.ascontiguousarray(k.dpfb_t.T, np.float32))
+    kernels.reset_launches()
+    got = tarbd.arbd(hist, x, an, pfb, dpfb, out_len)
+    assert kernels.launch_counts()["arbd"] == 0
+    want = tarbd.arbd_reference(
+        hist, x, torch.as_tensor(hl + head[0] - 1), torch.as_tensor(head[1]),
+        torch.as_tensor(alpha.astype(np.float32)), pfb, dpfb, out_len)
+    assert torch.equal(got, want)
+    e, p, a = tarbd.arbd_plan(an, out_len, "cpu")
+    assert (e.dtype, p.dtype, a.dtype) == (torch.int64, torch.int32,
+                                           torch.float32)
+    assert np.array_equal(e.numpy(), hl + head[0] - 1)
+    assert np.array_equal(p.numpy(), head[1])
+    with pytest.raises(ValueError, match="history"):
+        tarbd.arbd(hist[1:], x, an, pfb, dpfb, out_len)
 
 
 # -- carried state, the driver, the device rule ----------------------------
