@@ -45,6 +45,7 @@ script exits non-zero and prints no result; it also fails without CUDA.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -59,6 +60,10 @@ F32_FLOPS_PER_S = 67e12
 TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
        "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5,
        "stft_mt": 3e-5, "coherence": 1e-4}
+
+# K8c's tile edges (bins kept, channels, frames a block), also in
+# tests/test_torch_cuda.py
+PERM_L2, PERM_C, PERM_TB = (1, 4, 65, 128), (1, 5, 64, 130), (7, 257)
 
 # K3's edge cases (K, nfft, hop, C, nbins), also in tests/test_torch_cuda.py
 STFT_EDGES = [(15, 2048, 1024, 9, 1025), (64, 2048, 1024, 3, 2048),
@@ -274,9 +279,13 @@ def small_cases(dev):
     exact("stft", stft.stft_pow(x, win, 1024, 512, k, True, sc),
           stft.stft_pow(x, win, 1024, 512, k, True, sc), "Welch twice")
 
-    # K8a-c, exact
+    # K8a-c, exact; K8c's tile edges (l2 1 .. 128 bins, C 1 .. 130
+    # channels, runs of frames cut at TB 7 and 257), and views with a
+    # storage offset of 1 float (rows not 16-byte aligned: the kernels'
+    # one-float path) and of 4 floats
     from dsptpu_torch.kernels import transpose as tp
-    for shape in [(1024, 512), (1000, 300), (513, 2048), (3, 70001)]:
+    for shape in [(1024, 512), (1000, 300), (513, 2048), (3, 70001),
+                  (4097, 33)]:
         x = t(rng.standard_normal(shape))
         exact("transpose2d", tp.transpose2d(x), tp.transpose2d_reference(x),
               f"{shape}")
@@ -286,12 +295,32 @@ def small_cases(dev):
         exact("transpose_tall", tp.transpose_tall(x, TR, pad_to),
               tp.transpose_tall_reference(x, TR, pad_to),
               f"M={M} C={C} TR={TR} pad_to={pad_to}")
-    for C, nb, N1, TB, l2 in [(3, 2, 8, 16, 65), (1, 1, 4, 8, 33),
-                              (64, 2, 8, 32, 65), (40, 1, 16, 8, 128)]:
+    perm_cases = [(3, 2, 8, 16, 65), (1, 1, 4, 8, 33), (64, 2, 8, 32, 65),
+                  (40, 1, 16, 8, 128)]
+    perm_cases += [(C, 1, 2, TB, l2) for l2 in PERM_L2 for C in PERM_C
+                   for TB in PERM_TB]
+    for C, nb, N1, TB, l2 in perm_cases:
         x = t(rng.standard_normal((C, nb, N1, TB, 128)))
         exact("spectro_permute", tp.spectro_permute(x, l2),
               tp.spectro_permute_reference(x, l2),
               f"C={C} nb={nb} N1={N1} TB={TB} l2={l2}")
+
+    def view(off, *shape):
+        n = int(np.prod(shape))
+        return t(rng.standard_normal(n + off))[off:].view(*shape)
+    for off in (1, 4):
+        x = view(off, 1025, 300)
+        exact("transpose2d", tp.transpose2d(x), tp.transpose2d_reference(x),
+              f"(1025, 300) at storage offset {off}")
+        x = view(off, 10_001, 8)
+        exact("transpose_tall", tp.transpose_tall(x, 2048),
+              tp.transpose_tall_reference(x, 2048),
+              f"(10001, 8) TR=2048 at storage offset {off}")
+        for C, l2 in [(64, 65), (5, 128)]:
+            x = view(off, C, 1, 3, 9, 128)
+            exact("spectro_permute", tp.spectro_permute(x, l2),
+                  tp.spectro_permute_reference(x, l2),
+                  f"C={C} nb=1 N1=3 TB=9 l2={l2} at storage offset {off}")
 
     # K4: one nfft per M template (256 ... 16384), with a short filter
     # and, for some, the longest its gate takes (advance L >= max(128,
@@ -1093,6 +1122,32 @@ def path_d(dev, n=1_000_000, coh_n=16384):
     return counts, [row]
 
 
+def flushed_device_ms(fn, flush, calls=10):
+    """Device time per call of fn by kernel, {name: ms}, by torch.profiler
+    over `calls` calls, each after flush.zero_() (a write larger than the
+    50 MB L2; its fill kernel and the leading spin are left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and "spin" not in e.key and "FillFunctor" not in e.key):
+            m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
+            key = m.group(1) if m else e.key[:60]
+            out[key] = (out.get(key, 0.0)
+                        + e.self_device_time_total / 1e3 / calls)
+    return out
+
+
 def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
             perm=(64, 8, 8, 256, 65), TR=8192):
     """The K8 phase: the transpose kernels, which no route of the port
@@ -1102,7 +1157,10 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
     (C, nb, N1, TB, 128) power layout that the main path's spectrogram
     has on the TPU (perm = (C, nb, N1, TB, l2)). Each kernel equals its
     plain version bit for bit; its time, the library's and the bound
-    (bytes) follow."""
+    (bytes) follow. Times are CUDA-event medians of runs of 10 calls back
+    to back (the wrapper's host work then overlaps the card), and each
+    kernel's device time per call is by torch.profiler over 10 calls,
+    each after a 128 MB write that flushes the L2."""
     import torch
     from dsptpu_torch import kernels
     from dsptpu_torch.kernels import transpose as tp
@@ -1116,6 +1174,7 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
     tile = torch.as_tensor(rng.standard_normal(
         (Cp, nb, N1, TB, 128)).astype(np.float32), device=dev)
     L = tp.tall_out_len(n, TR)
+    flush = torch.empty(32 << 20, device=dev)       # 128 MB
     log(f"K8 phase: transpose2d {M2}, transpose_tall ({n}, {C}) TR {TR} "
         f"-> ({C}, {L}), spectro_permute {tuple(tile.shape)} l2 {l2}")
 
@@ -1148,10 +1207,13 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
         rows.append(dict(
             name=name, route="cuda", source="dsptpu_torch/csrc/transpose.cu",
             replaces=f"dsptpu/kernels/transpose.py:{line}",
-            launches=counts[name], max_abs_err=0.0, ms=time_ms(kern),
-            plain_ms=time_ms(plain, reps=5), library_ms=time_ms(lib),
-            bound=bound(nbytes, 0)))
+            launches=counts[name], max_abs_err=0.0,
+            ms=time_ms(kern, inner=10), plain_ms=time_ms(plain, reps=5),
+            library_ms=time_ms(lib, inner=10), bound=bound(nbytes, 0)))
         report(rows[-1])
+        dev_ms = flushed_device_ms(kern, flush)
+        log(f"  {name}: device time per call {sum(dev_ms.values()):.4f} ms "
+            f"(L2 flushed before each call) by kernel {dev_ms}")
     return counts, rows
 
 
@@ -1202,7 +1264,7 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
-    for name in ("pfb2", "biir", "arbd"):
+    for name in ("pfb2", "biir", "arbd", "transpose"):
         if any(f.startswith(f"{name}:") for f in framed):
             raise AssertionError(f"{name}: a template keeps registers in a "
                                  "stack frame")

@@ -17,7 +17,14 @@ dsptpu exposes them.
 
 A transpose is exact: kernel, plain version and dsptpu agree bit for
 bit. Bound on an H100: the bytes (each input element read once, each
-output element written once) at 3.35 TB/s.
+output element written once) at 3.35 TB/s. K8a and K8b share one 32 x 32
+shared-memory tile transpose; K8c stages (frames x channels x bins)
+blocks with 16-byte loads and writes each bin's contiguous run with
+16-byte stores (scalar where a view's storage offset leaves its rows
+unaligned or C is not a multiple of 4). Device time with the L2 flushed
+(tools/k8_ab.py; NVIDIA H100 80GB HBM3, 700.00 W), at chip_smoke.py's
+K8 shapes: K8a 0.034 ms (bound 0.025), K8b 0.186-0.189 (0.153), K8c
+0.224 (0.163).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (an index gather: out.flat[i] = x.flat[src(i)]) for a

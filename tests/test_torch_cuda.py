@@ -571,7 +571,8 @@ def test_welch_kernel_repeats_bit_for_bit(dev):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(1000, 300), (513, 2048), (3, 70001)])
+@pytest.mark.parametrize("shape", [(1000, 300), (513, 2048), (3, 70001),
+                                   (4097, 33)])
 def test_transpose2d_kernel_matches_plain(dev, shape):
     x = randn(dev, *shape, seed=shape[0])
     got = launched_once("transpose2d",
@@ -601,6 +602,43 @@ def test_spectro_permute_kernel_matches_plain(dev, C, nb, N1, TB, l2):
                         lambda: transpose.spectro_permute(tile, l2))
     torch.cuda.synchronize()
     assert torch.equal(got, transpose.spectro_permute_reference(tile, l2))
+
+
+# K8c's tile edges: bins kept (one 16-byte load, a ragged one, the whole
+# row), channels (one, not a multiple of 4, a chunk of the tile's
+# channels, past one chunk) and frames (fewer than a run, a ragged last
+# run); also in chip_smoke.py
+@pytest.mark.parametrize("TB", [7, 257])
+@pytest.mark.parametrize("C", [1, 5, 64, 130])
+@pytest.mark.parametrize("l2", [1, 4, 65, 128])
+def test_spectro_permute_kernel_tile_edges(dev, l2, C, TB):
+    tile = randn(dev, C, 1, 2, TB, 128, seed=C * TB + l2)
+    got = launched_once("spectro_permute",
+                        lambda: transpose.spectro_permute(tile, l2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, transpose.spectro_permute_reference(tile, l2))
+
+
+def offset_view(dev, off, *shape):
+    """A contiguous view at a storage offset of `off` floats: at 1 its rows
+    are not 16-byte aligned, so the kernels take their one-float path."""
+    n = int(np.prod(shape))
+    return randn(dev, n + off, seed=n + off)[off:].view(*shape)
+
+
+@pytest.mark.parametrize("off", [1, 4])
+@pytest.mark.parametrize("name,shape,arg", [
+    ("transpose2d", (1025, 300), None),
+    ("transpose_tall", (10_001, 8), 2048),
+    ("spectro_permute", (64, 1, 3, 9, 128), 65),
+    ("spectro_permute", (5, 1, 3, 9, 128), 128)])
+def test_transposes_at_a_storage_offset(dev, name, shape, arg, off):
+    x = offset_view(dev, off, *shape)
+    assert x.storage_offset() == off and x.is_contiguous()
+    args = (x,) if arg is None else (x, arg)
+    got = launched_once(name, lambda: getattr(transpose, name)(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, getattr(transpose, f"{name}_reference")(*args))
 
 
 def test_multitaper_runs_the_stack_kernel(dev):

@@ -22,7 +22,8 @@ def rand(shape, seed):
         np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1024, 512), (1000, 300), (513, 2048)])
+@pytest.mark.parametrize("shape", [(1024, 512), (1000, 300), (513, 2048),
+                                   (33, 4097)])
 def test_transpose2d_matches_pallas_interpret(shape):
     x = rand(shape, shape[0])
     want = np.asarray(transpose2d_pallas(jnp.asarray(x), interpret=True))
@@ -45,13 +46,39 @@ def test_transpose_tall_matches_pallas_interpret(M, C, TR, pad_to):
 
 
 @pytest.mark.parametrize("C,nb,N1,TB,l2", [(3, 2, 8, 16, 65),
-                                           (1, 1, 4, 8, 33)])
+                                           (1, 1, 4, 8, 33),
+                                           (5, 1, 2, 7, 1),
+                                           (5, 1, 2, 7, 128)])
 def test_spectro_permute_matches_pallas_interpret(C, nb, N1, TB, l2):
     tile = rand((C, nb, N1, TB, 128), C * TB)
     want = np.asarray(spectro_permute_pallas(jnp.asarray(tile), l2,
                                              interpret=True))
     got = tt.spectro_permute(torch.as_tensor(tile), l2)
     assert np.array_equal(got.numpy(), want)
+
+
+def offset_view(x, off):
+    """x's values in a contiguous view at a storage offset of `off` floats
+    (rows not 16-byte aligned at 1: the card kernels' one-float path)."""
+    buf = torch.zeros(x.size + off)
+    buf[off:] = torch.as_tensor(x).reshape(-1)
+    return buf[off:].view(*x.shape)
+
+
+@pytest.mark.parametrize("off", [1, 4])
+def test_offset_views_match_pallas_interpret(off):
+    x = rand((1025, 300), off)
+    got = tt.transpose2d(offset_view(x, off))
+    assert np.array_equal(got.numpy(), np.asarray(
+        transpose2d_pallas(jnp.asarray(x), interpret=True)))
+    x = rand((10_001, 8), off + 1)
+    got = tt.transpose_tall(offset_view(x, off), TR=2048)
+    assert np.array_equal(got.numpy(), np.asarray(transpose_tall_pallas(
+        jnp.asarray(x), TR=2048, interpret=True)))
+    tile = rand((5, 1, 3, 9, 128), off + 2)
+    got = tt.spectro_permute(offset_view(tile, off), 128)
+    assert np.array_equal(got.numpy(), np.asarray(spectro_permute_pallas(
+        jnp.asarray(tile), 128, interpret=True)))
 
 
 def test_spectro_permute_refuses_bad_shapes():

@@ -64,13 +64,13 @@ def ptxas_lines(source):
             or "stack frame" in line]
 
 
-def device_ms_by_kernel(fn, name="", calls=1):
+def device_ms_by_kernel(fn, name="", calls=1, exclude=()):
     """Device time per call of fn, {kernel name: ms}, of the kernels whose
-    name holds `name` (every kernel for ""), by torch.profiler over
-    `calls` calls after one unprofiled call. The window starts with a
-    spin kernel of about a millisecond, left out of the sum: the device
-    records of a window's first fraction of a millisecond can go
-    missing."""
+    name holds `name` (every kernel for "") and none of the strings in
+    `exclude`, by torch.profiler over `calls` calls after one unprofiled
+    call. The window starts with a spin kernel of about a millisecond,
+    left out of the sum: the device records of a window's first fraction
+    of a millisecond can go missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -84,7 +84,8 @@ def device_ms_by_kernel(fn, name="", calls=1):
     out = {}
     for e in prof.key_averages():
         if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and "spin" not in e.key and name in e.key):
+                and "spin" not in e.key and name in e.key
+                and not any(x in e.key for x in exclude)):
             m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
             key = m.group(1) if m else e.key[:60]
             out[key] = out.get(key, 0.0) + (
