@@ -59,11 +59,14 @@ F32_FLOPS_PER_S = 67e12
 
 TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
        "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5,
-       "stft_mt": 3e-5, "coherence": 1e-4}
+       "stft_mt": 3e-5, "coherence": 1e-4, "lags": 1e-6}
 
 # K8c's tile edges (bins kept, channels, frames a block), also in
 # tests/test_torch_cuda.py
 PERM_L2, PERM_C, PERM_TB = (1, 4, 65, 128), (1, 5, 64, 130), (7, 257)
+
+# K5's order-class edges, also in tests/test_torch_cuda.py
+K5_ORDERS = (2, 8, 9, 16, 17, 32, 33, 64)
 
 # K3's edge cases (K, nfft, hop, C, nbins), also in tests/test_torch_cuda.py
 STFT_EDGES = [(15, 2048, 1024, 9, 1025), (64, 2048, 1024, 3, 2048),
@@ -361,9 +364,9 @@ def small_cases(dev):
                         f"{'F' if ss.sections is None else 'SOS'} "
                         f"p={ss.p} n={n} C={C} n_eff={m}")
 
-    # K5
-    for p in (2, 16, 32, 64):
-        for C in (128, 300, 2500):
+    # K5 at each order class's edges (classes 8, 16, 32, 64)
+    for p in K5_ORDERS:
+        for C in (128, 130, 300, 2500):
             x = t(rng.standard_normal((400, C)))
             R = torch.stack([(x[: 400 - lag] * x[lag:]).sum(0) / 400
                              for lag in range(p + 1)])
@@ -544,14 +547,17 @@ def _profile_once(forward, x):
     return traces[0]
 
 
-def profile_main_path(forward, x, call_ms, counts, label="main path"):
+def profile_main_path(forward, x, call_ms, counts, label="main path",
+                      stage=None):
     """Device time by kernel per call of a path (torch.profiler over
     CALLS_PROFILED calls), and its share of call_ms, the call's
     unprofiled time. Every kernel that `counts` (the launch counters of
     the path's run) says was launched must have one device record for
     each launch in the profiled calls: the profile is taken again once
     if one is missing, and the run fails if it is still missing. Logs
-    K2's device time per pass by stage where the path ran K2."""
+    K2's device time per pass by stage where the path ran K2, and for
+    `stage`, the name of a record_function range in the path, its host
+    time (the range's CPU events) and the device time of its kernels."""
     import torch
     from torch.autograd import DeviceType
     forward(x)
@@ -599,6 +605,16 @@ def profile_main_path(forward, x, call_ms, counts, label="main path"):
         f"{call_ms:.3f} ms (idle share "
         f"{max(0.0, 1 - busy_ms / call_ms):.3f}; the table sums "
         f"{CALLS_PROFILED} calls)")
+    if stage:
+        ev = [e for e in avg if e.key == stage
+              and e.device_type == DeviceType.CPU]
+        if not ev:
+            raise AssertionError(f"profile ({label}): no range {stage}")
+        log(f"profile ({label}): stage {stage}: host "
+            f"{sum(e.cpu_time_total for e in ev) / 1e3 / CALLS_PROFILED:.4f}"
+            " ms a call (its CPU events), device "
+            f"{sum(e.device_time_total for e in ev) / 1e3 / CALLS_PROFILED:.4f}"
+            " ms a call (its kernels)")
 
 
 def path_a(dev):
@@ -677,6 +693,7 @@ def path_b(dev):
     from dsptpu_torch import kernels
     from dsptpu_torch.filters.filt import _cascade_ss
     from dsptpu_torch.kernels import biir, levinson
+    from dsptpu_torch.ops.lpc import _biased_lags
 
     forward, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda")
     n, C = x.shape
@@ -711,13 +728,55 @@ def path_b(dev):
 
     p, flen = 16, 400
     nfr = n // flen
-    frames = x[: nfr * flen, 0].reshape(nfr, flen).T
-    R = torch.stack([(frames[: flen - lag] * frames[lag:]).sum(0) / flen
-                     for lag in range(p + 1)])
+
+    def lags_17(f, p):
+        # the lags as p+1 products and sums (17 at p 16): the yardstick
+        # of the batched pass
+        return torch.stack([(f[: flen - lag] * f[lag:]).sum(0) / flen
+                            for lag in range(p + 1)])
+    # the frames as filtfilt_lpc_entry copies them
+    frames = x[: nfr * flen, 0].reshape(nfr, flen).T.contiguous()
+    R = _biased_lags(frames, p)
+    compare("lags", R, lags_17(frames, p), "path B lags, one batched pass "
+            "vs 17 sums (max|ref| = R[0])")
+    lag_launches = {}
+    for form, fn in (("17 sums", lambda: lags_17(frames, p)),
+                     ("one batched pass", lambda: _biased_lags(frames, p))):
+        by = device_by_kernel(fn)
+        lag_launches[form] = sum(v[1] for v in by.values())
+        log(f"  path B lags ({form}): device "
+            f"{sum(v[0] for v in by.values()):.4f} ms in "
+            f"{lag_launches[form]:.0f} launches a call (profiler, 10 "
+            f"calls): " + ", ".join(f"{k} {v[0]:.4f} ms x {v[1]:.0f}"
+                                     for k, v in by.items()))
+    if lag_launches["one batched pass"] > 4:
+        raise AssertionError(f"path B lags: {lag_launches} launches")
     errs = [compare("levinson", g, w, f"{name}, path B shapes")
             for name, g, w in zip(("a", "err", "refl"),
                                   levinson.levinson(R, p),
                                   levinson.levinson_reference(R, p))]
+    # K5 by device time at path B's shape, at p 64 and over the 2500
+    # frames of all C channels (the wide batch)
+    xw = x[: nfr * flen].reshape(nfr, flen, C).transpose(0, 1).reshape(
+        flen, nfr * C)
+    for pk, Rk in ((p, R), (64, _biased_lags(frames, 64)),
+                   (p, lags_17(xw, p))):
+        what = f"p {pk} C {Rk.shape[1]}"
+        if Rk is not R:
+            for name, g, w in zip(("a", "err", "refl"),
+                                  levinson.levinson(Rk, pk),
+                                  levinson.levinson_reference(Rk, pk)):
+                compare("levinson", g, w, f"{name}, {what}")
+        by = device_by_kernel(lambda: levinson.levinson(Rk, pk))
+        log(f"  levinson at {what}: device "
+            f"{sum(v[0] for v in by.values()):.5f} ms a call (profiler, 10 "
+            f"calls), events "
+            f"{time_ms(lambda: levinson.levinson(Rk, pk), inner=10):.5f} ms "
+            "a call (10 back to back), one call "
+            f"{time_ms(lambda: levinson.levinson(Rk, pk)):.5f} ms (events: "
+            "the wrapper's host time and the launch); bytes bound "
+            f"{bound(4 * Rk.shape[1] * (3 * pk + 2), 0)[0]:.5f} ms")
+    del xw
     idx = torch.arange(p, device=dev)
     toe = (idx[:, None] - idx[None, :]).abs()
 
@@ -728,10 +787,10 @@ def path_b(dev):
     rows.append(dict(
         name="levinson", route="cuda", source="dsptpu_torch/csrc/levinson.cu",
         replaces="dsptpu/kernels/levinson.py:75", max_abs_err=max(errs),
-        ms=time_ms(lambda: levinson.levinson(R, p)),
+        ms=time_ms(lambda: levinson.levinson(R, p), inner=10),
         plain_ms=time_ms(lambda: levinson.levinson_reference(R, p)),
         library_ms=time_ms(library),
-        bound=bound(4 * nfr * ((p + 1) + 2 * p + 1), 2 * p * p * nfr)))
+        bound=bound(4 * nfr * (3 * p + 2), 2 * p * p * nfr)))
     report(rows[-1])
 
     kernels.reset_launches()
@@ -748,7 +807,7 @@ def path_b(dev):
         raise AssertionError("path B: shapes or non-finite output")
     e2e = time_ms(lambda: forward(x), reps=5, warmup=1)
     log(f"path B end to end: {e2e:.3f} ms (median of 5)")
-    profile_main_path(forward, x, e2e, counts, "path B")
+    profile_main_path(forward, x, e2e, counts, "path B", stage="lpc")
     y64, (a64, e64) = forward(x.double())
     compare("biir_reverse", y, y64, "path B filtfilt vs float64")
     compare("levinson", a, a64, "path B lpc a vs float64")
@@ -1122,10 +1181,11 @@ def path_d(dev, n=1_000_000, coh_n=16384):
     return counts, [row]
 
 
-def flushed_device_ms(fn, flush, calls=10):
-    """Device time per call of fn by kernel, {name: ms}, by torch.profiler
-    over `calls` calls, each after flush.zero_() (a write larger than the
-    50 MB L2; its fill kernel and the leading spin are left out)."""
+def device_by_kernel(fn, flush=None, calls=10):
+    """Device time and launches per call of fn by kernel, {name: [ms,
+    launches]}, by torch.profiler over `calls` calls, each after
+    flush.zero_() where flush is given (a write larger than the 50 MB L2;
+    its fill kernel is then left out, as is the leading spin)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1134,17 +1194,20 @@ def flushed_device_ms(fn, flush, calls=10):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(2_000_000)
         for _ in range(calls):
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and "spin" not in e.key and "FillFunctor" not in e.key):
+                and "spin" not in e.key and not (
+                    flush is not None and "FillFunctor" in e.key)):
             m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
             key = m.group(1) if m else e.key[:60]
-            out[key] = (out.get(key, 0.0)
-                        + e.self_device_time_total / 1e3 / calls)
+            v = out.setdefault(key, [0.0, 0.0])
+            v[0] += e.self_device_time_total / 1e3 / calls
+            v[1] += e.count / calls
     return out
 
 
@@ -1211,7 +1274,7 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
             ms=time_ms(kern, inner=10), plain_ms=time_ms(plain, reps=5),
             library_ms=time_ms(lib, inner=10), bound=bound(nbytes, 0)))
         report(rows[-1])
-        dev_ms = flushed_device_ms(kern, flush)
+        dev_ms = {k: v[0] for k, v in device_by_kernel(kern, flush).items()}
         log(f"  {name}: device time per call {sum(dev_ms.values()):.4f} ms "
             f"(L2 flushed before each call) by kernel {dev_ms}")
     return counts, rows
@@ -1256,7 +1319,8 @@ def main():
                 if "Compiling entry" in line:
                     entry = line.split("'")[1] if "'" in line else line
                 if ("registers" in line or "spill" in line.lower()
-                        or (name in ("stft", "osconv", "biir", "pfb2", "arbd")
+                        or (name in ("stft", "osconv", "biir", "pfb2", "arbd",
+                                     "levinson")
                             and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
                 if ("bytes stack frame" in line and not
@@ -1264,7 +1328,7 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
-    for name in ("pfb2", "biir", "arbd", "transpose"):
+    for name in ("pfb2", "biir", "arbd", "transpose", "levinson"):
         if any(f.startswith(f"{name}:") for f in framed):
             raise AssertionError(f"{name}: a template keeps registers in a "
                                  "stack frame")

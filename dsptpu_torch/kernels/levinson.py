@@ -7,12 +7,12 @@ per channel the order-p predictor a (p, C), the prediction error err
 (C,) and the reflection coefficients refl (p, C), as ops/lpc.levinson
 does.
 
-Bound on an H100: the bytes of R, a, err and refl (about 8 (p + 1) C
-bytes), a few microseconds at any realistic size; the recursion's
-p^2 multiply-adds per channel are fewer still. The kernel gives each
-channel one thread that keeps R, a and its reversed copy in local
-arrays; reads of R and writes of a and refl are coalesced across the
-channels of a warp.
+Bounds on an H100: the bytes of R, a, err and refl (4 (3p + 2) C), a
+tenth of a microsecond at path B's shape (p 16, C 2500), and the
+latency of the recursion's chain of p orders, each a dot and an IEEE
+division. The kernel gives each channel one thread whose r and a live
+in registers, one instance per order class (8, 16, 32, 64); reads of R
+and writes of the outputs are coalesced across the channels of a warp.
 
 `levinson` launches the kernel for a CUDA tensor and runs
 `levinson_reference`, the plain PyTorch version (the per-order vector
@@ -30,9 +30,10 @@ __all__ = ["levinson", "levinson_reference", "lev_supported", "launches"]
 
 launches = {"levinson": 0}
 
-# dsptpu_levinson(R, a, err, refl, p, C, stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+# dsptpu_levinson(R, ldr, out, p, C, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_entry = None
 
 
 def lev_supported(p, C, dtype):
@@ -63,22 +64,25 @@ def levinson_reference(R, p):
 
 def levinson(R, p):
     """Levinson-Durbin recursion of order p on R (>= p+1, C) float32.
-    Returns (a (p, C), err (C,), refl (p, C))."""
-    if R.device.type == "cpu":
+    Returns (a (p, C), err (C,), refl (p, C)), contiguous row views of
+    one (2p+1, C) tensor. R's rows are read in place where its columns
+    are adjacent (stride 1), whatever its row stride."""
+    global _entry
+    if R.is_cpu:
         return levinson_reference(R[: p + 1], p)
     if R.dtype != torch.float32 or R.ndim != 2:
         raise TypeError("levinson kernel takes (p+1, C) float32 lags")
-    if R.shape[0] < p + 1 or not lev_supported(p, R.shape[1], R.dtype):
+    C = R.shape[1]
+    if R.shape[0] < p + 1 or not lev_supported(p, C, R.dtype):
         raise ValueError("levinson kernel takes 2 <= p <= 64, C >= 128 "
                          "and p+1 lags")
-    Rc = R[: p + 1].contiguous()
-    C = Rc.shape[1]
-    a = torch.empty((p, C), dtype=torch.float32, device=Rc.device)
-    err = torch.empty(C, dtype=torch.float32, device=Rc.device)
-    refl = torch.empty_like(a)
-    f = _build.entry("levinson", "dsptpu_levinson", _ARGTYPES)
-    code = f(Rc.data_ptr(), a.data_ptr(), err.data_ptr(), refl.data_ptr(),
-             p, C, _build.stream_of(Rc))
+    if R.stride(1) != 1 or R.stride(0) < C:
+        R = R[: p + 1].contiguous()
+    out = torch.empty((2 * p + 1, C), dtype=torch.float32, device=R.device)
+    if _entry is None:
+        _entry = _build.entry("levinson", "dsptpu_levinson", _ARGTYPES)
+    code = _entry(R.data_ptr(), R.stride(0), out.data_ptr(), p, C,
+                  torch.cuda.current_stream(R.get_device()).cuda_stream)
     _build.check("levinson", code, "levinson kernel launch")
     launches["levinson"] += 1
-    return a, err, refl
+    return out[:p], out[2 * p], out[p: 2 * p]

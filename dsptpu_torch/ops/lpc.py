@@ -6,7 +6,9 @@ update is a vector op over the whole signal or the channel batch, with
 channels on trailing dims. Real float32 autocorrelations with at least
 128 channels and 2 <= p <= 64 go through K5, the hand-written
 Levinson-Durbin kernel (kernels/levinson.py); the wrapper runs its
-plain version for a CPU tensor.
+plain version for a CPU tensor. `lpc` of a multichannel signal forms
+its p+1 lags in one batched pass (`_biased_lags`), where dsptpu writes
+p+1 shifted products that XLA fuses under jit.
 
 Device rule: a tensor argument stays on its device; a numpy array or a
 list goes to `device=` (default "cuda", which must be present).
@@ -14,17 +16,11 @@ list goes to `device=` (default "cuda", which must be present).
 
 import torch
 
+from ..kernels.levinson import lev_supported, levinson as lev_kernel
 from ..utils.device import as_tensor
 from .dspbase import xcorr
 
 __all__ = ["lpc", "arburg", "levinson", "LPCBurg", "LPCLevinson"]
-
-
-def _kernel_lev_ok(p, C, dtype):
-    """dsptpu's _pallas_lev_ok gate without the platform check: the
-    wrapper picks kernel or plain version by the tensor's device."""
-    from ..kernels.levinson import lev_supported
-    return lev_supported(p, C, dtype)
 
 
 class LPCBurg:
@@ -108,9 +104,10 @@ def levinson(R, p, device=None):
         return (a_arr.reshape((p,) + shape), pred_err.reshape(shape),
                 refl_arr.reshape((p,) + shape))
 
-    if not dtype.is_complex and _kernel_lev_ok(p, C, dtype):
-        from ..kernels.levinson import levinson as lev_kernel
-        return out(*lev_kernel(Rf[: p + 1], p))
+    # dsptpu's _pallas_lev_ok gate without the platform check: the
+    # wrapper picks kernel or plain version by the tensor's device
+    if not dtype.is_complex and lev_supported(p, C, dtype):
+        return out(*lev_kernel(Rf, p))
 
     k = -Rf[1] / Rf[0]
     pred_err = Rf[0].real * (1 - k.abs() ** 2)
@@ -129,6 +126,19 @@ def levinson(R, p, device=None):
     return out(a_arr, pred_err, torch.stack(refl))
 
 
+def _biased_lags(x, p):
+    """The p+1 biased autocorrelation lags of x (n, *chans) along axis 0,
+    R[l] = sum_t conj(x[t]) x[t+l] / n, (p+1, *chans), in one batched
+    pass: the windows of p+1 samples of x zero-padded by p samples (an
+    unfolded view) times conj(x), averaged over t. Four launches on the
+    card (the pad's fill and copy, the product, the mean); the product
+    holds (p+1) n prod(chans) elements."""
+    x = x.to(_inexact(x.dtype))
+    xp = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (0, p))
+    win = xp.unfold(0, p + 1, 1).movedim(-1, 0)        # (p+1, n, *chans)
+    return (x.conj() * win).mean(1)
+
+
 def lpc(x, p, method="burg", device=None):
     """LPC coefficients and prediction error, without the implicit
     leading 1. method in {"burg", "levinson"} (or the marker classes)."""
@@ -145,10 +155,7 @@ def lpc(x, p, method="burg", device=None):
         if x.ndim == 1:
             R = xcorr(x, scaling="biased")[n - 1:]
         else:
-            # batched biased autocorrelation: only the p+1 needed lags
-            xc = x.conj()
-            R = torch.stack([(xc[: n - l] * x[l:]).sum(0) / n
-                             for l in range(p + 1)], 0)
+            R = _biased_lags(x, p)
         a, err, _ = levinson(R, p)
         return a, err
     raise ValueError("method must be 'burg' or 'levinson'")

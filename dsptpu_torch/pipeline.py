@@ -128,7 +128,9 @@ def filtfilt_lpc_entry(device="cuda", n=1_000_000, channels=64, order=8,
         # one copy of the frames, as bench.py makes them (.T.copy()):
         # the lag sums then read 4 MB contiguously, not a strided column
         frames = x[: nfr * flen, 0].reshape(nfr, flen).T.contiguous()
-        return y, lpc(frames, lpc_order, method="levinson")
+        # a range for profiles: the LPC stage's host and device time
+        with torch.profiler.record_function("lpc"):
+            return y, lpc(frames, lpc_order, method="levinson")
 
     return forward, (_stream(dev, n, channels),)
 

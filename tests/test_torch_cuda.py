@@ -206,6 +206,94 @@ def test_levinson_kernel_matches_plain(dev, p, C):
         check(g, w, 1e-4)
 
 
+K5_ORDERS = (2, 8, 9, 16, 17, 32, 33, 64)   # the order classes' edges
+
+
+def k5_lags(dev, p, C, seed=0):
+    """The biased lags of C standard normal frames of 400 samples."""
+    x = randn(dev, 400, C, seed=seed)
+    return torch.stack([(x[: 400 - l] * x[l:]).sum(0) / 400
+                        for l in range(p + 1)])
+
+
+@pytest.mark.parametrize("C", [128, 130, 2500, 160000])
+@pytest.mark.parametrize("p", K5_ORDERS)
+def test_levinson_kernel_order_classes(dev, p, C):
+    """Each order class (8, 16, 32, 64) at its edges, from one warp's
+    worth of blocks to the wide batch of path B's frames of 64
+    channels."""
+    R = k5_lags(dev, p, C, seed=p + C)
+    got = launched_once("levinson", lambda: levinson.levinson(R, p))
+    for g, w in zip(got, levinson.levinson_reference(R, p)):
+        check(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("p", [9, 16, 64])
+def test_levinson_kernel_reads_rows_in_place(dev, p):
+    """R with rows past p+1, R as a column slice of a wider matrix (row
+    stride > C) and R with a column stride (copied) give the plain
+    version's result."""
+    R = k5_lags(dev, p + 5, 300, seed=p)
+    wide = k5_lags(dev, p, 700, seed=p + 1)
+    for Rv in (R, wide[:, 200:500], wide[:, ::2]):
+        got = launched_once("levinson", lambda: levinson.levinson(Rv, p))
+        for g, w in zip(got, levinson.levinson_reference(Rv[: p + 1], p)):
+            check(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("p", [2, 16, 64])
+def test_levinson_kernel_nonfinite_columns(dev, p):
+    """A zero column, an Inf column, a column with R[0] Inf and one with
+    R[0] zero give the plain version's NaN and Inf pattern (IEEE
+    division); the other columns agree within 1e-4."""
+    R = k5_lags(dev, p, 130, seed=p)
+    R[:, 3] = 0
+    R[:, 7] = float("inf")
+    R[0, 11] = float("inf")
+    R[0, 13] = 0
+    got = levinson.levinson(R, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, levinson.levinson_reference(R, p)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.isinf(g), torch.isinf(w))
+        assert not torch.isfinite(w).all()
+        fin = torch.isfinite(w)
+        d = (g[fin].double() - w[fin].double()).abs().max()
+        assert d <= 1e-4 * w[fin].double().abs().max()
+
+
+@pytest.mark.parametrize("p,C", [(16, 2500), (64, 130), (9, 160000)])
+def test_levinson_kernel_repeats_bit_for_bit(dev, p, C):
+    R = k5_lags(dev, p, C, seed=C)
+    first = [t.clone() for t in levinson.levinson(R, p)]
+    for g, w in zip(levinson.levinson(R, p), first):
+        assert torch.equal(g, w)
+
+
+def test_levinson_kernel_outputs_contiguous_and_distinct(dev):
+    p, C = 16, 300
+    a, err, refl = levinson.levinson(k5_lags(dev, p, C), p)
+    assert a.shape == (p, C) and refl.shape == (p, C) and err.shape == (C,)
+    assert a.is_contiguous() and refl.is_contiguous() and err.is_contiguous()
+    spans = sorted((t.data_ptr(), t.data_ptr() + 4 * t.numel())
+                   for t in (a, err, refl))
+    assert all(e0 <= s1 for (_, e0), (s1, _) in zip(spans, spans[1:]))
+
+
+def test_filtfilt_lpc_entry_launches_k5_once(dev):
+    """Path B at 500 frames of 400 samples: one K5 launch a call, its LPC
+    within 1e-4 of the float64 call."""
+    fwd, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda", n=200_000,
+                                                channels=2)
+    kernels.reset_launches()
+    y, (a, e) = fwd(x)
+    assert kernels.launch_counts()["levinson"] == 1
+    assert a.shape == (16, 500) and e.shape == (500,)
+    _, (a64, e64) = fwd(x.double())
+    check(a, a64, 1e-4)
+    check(e, e64, 1e-4)
+
+
 def test_paths_run_their_kernels(dev):
     """fftfilt (path A's route), filtfilt and lpc (path B's) on CUDA
     float32 launch K4, K2 forward + reverse, and K5, and agree with the

@@ -12,6 +12,9 @@ op); a 1-D case runs eagerly, because dsptpu's arburg and levinson of a
 float64, <= 1e-4 max|ref| in float32 (bench.py's LPC bound: an order-16
 recursion on float32 lags)."""
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -136,3 +139,98 @@ def test_k5_gate_is_dsptpus(p, C, ok):
     assert lev_supported(p, C, np.float32) == ok
     assert tlev.lev_supported(p, C, torch.float32) == ok
     assert not tlev.lev_supported(p, C, torch.float64)
+
+
+K5_ORDERS = (2, 8, 9, 16, 17, 32, 33, 64)   # the order classes' edges
+# the kernel's accumulators for the order's dot
+K5_ACC = int(re.search(r"constexpr int kAcc = (\d+);", (
+    pathlib.Path(tlev.__file__).parent.parent / "csrc" /
+    "levinson.cu").read_text()).group(1))
+
+
+@pytest.mark.parametrize("C", [128, 130])
+@pytest.mark.parametrize("p", K5_ORDERS)
+def test_k5_plain_matches_pallas_interpret_order_classes(p, C):
+    """K5's plain version against dsptpu's Pallas kernel at each edge of
+    the CUDA kernel's order classes (8, 16, 32, 64)."""
+    rng = np.random.default_rng(10 * p + C)
+    R = lags(rng.standard_normal((400, C)), p).astype(np.float32)
+    want = levinson_pallas(jnp.asarray(R), p, True, 256)
+    got = tlev.levinson(torch.as_tensor(R), p)
+    for g, w in zip(got, want):
+        check(g, w, 1e-4)
+
+
+def emulate_k5(R, p, nacc=4):
+    """The CUDA kernel's operation order (csrc/levinson.cu) in numpy
+    float32, one column per channel: term i of the order-m dot in
+    accumulator i % nacc (accumulator 0 starts at R[m]), the accumulators
+    summed as a tree, k = -acc / err, the pair update a[i] += k a[m-2-i],
+    a[m-2-i] += k a[i] from the old pair, the middle element once, each
+    multiply-add rounded once (float64 product and sum, then float32).
+    Returns (a, err, refl)."""
+    f32 = np.float32
+
+    def fma(x, y, z):
+        return (x.astype(np.float64) * y + z).astype(f32)
+    r = R[: p + 1].astype(f32)
+    C = r.shape[1]
+    a = np.zeros((p, C), f32)
+    refl = np.zeros((p, C), f32)
+    k = -r[1] / r[0]
+    err = r[0] * fma(-k, k, np.ones(C, f32))
+    a[0] = refl[0] = k
+    for m in range(2, p + 1):
+        s = [r[m].copy()] + [np.zeros(C, f32) for _ in range(nacc - 1)]
+        for i in range(1, m):
+            s[i % nacc] = fma(r[i], a[m - 1 - i], s[i % nacc])
+        w = nacc // 2
+        while w:
+            for j in range(w):
+                s[j] = s[j] + s[j + w]
+            w //= 2
+        k = -s[0] / err
+        old = a[: m - 1].copy()
+        for i in range((m - 1) // 2):
+            a[i] = fma(k, old[m - 2 - i], old[i])
+            a[m - 2 - i] = fma(k, old[i], old[m - 2 - i])
+        if (m - 1) % 2:
+            h = (m - 2) // 2
+            a[h] = fma(k, old[h], old[h])
+        a[m - 1] = refl[m - 1] = k
+        err = err * fma(-k, k, np.ones(C, f32))
+    return a, err, refl
+
+
+@pytest.mark.parametrize("nacc", [1, K5_ACC])
+@pytest.mark.parametrize("p", K5_ORDERS)
+def test_k5_kernel_order_emulated(p, nacc):
+    """The kernel's accumulator split and pair update, emulated, against
+    the plain version within 1e-5; nacc 1 is one accumulator, K5_ACC the
+    kernel's (kAcc in csrc/levinson.cu)."""
+    rng = np.random.default_rng(p)
+    x = signal(rng, (400, 130), np.float64)
+    R = lags(x, p).astype(np.float32)
+    got = emulate_k5(R, p, nacc)
+    want = tlev.levinson_reference(torch.as_tensor(R), p)
+    for g, w in zip(got, want):
+        check(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("C,p", [(130, 16), (2500, 16), (130, 64)])
+def test_lpc_batched_lags_match_dsptpu(C, p, dtype):
+    """lpc's lags in one batched pass (ops/lpc._biased_lags) against the
+    p+1 shifted sums, and lpc(..., "levinson") against dsptpu's: 1e-9
+    relative in float64 (x64), 1e-4 in float32 (K5's plain version)."""
+    from dsptpu_torch.ops.lpc import _biased_lags
+    rng = np.random.default_rng(C + p)
+    x = signal(rng, (400, C), np.float64).astype(dtype)
+    tol = 1e-9 if dtype == np.float64 else 1e-4
+    check(_biased_lags(torch.as_tensor(x), p),
+          lags(x.astype(np.float64), p), 1e-12 if dtype == np.float64
+          else 1e-6)
+    want = reference(lambda v: dsptpu.lpc(v, p, method="levinson"), x)
+    got = dsptpu_torch.lpc(torch.as_tensor(x), p, method="levinson")
+    for g, w in zip(got, want):
+        check(g, w, tol)

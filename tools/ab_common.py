@@ -64,13 +64,14 @@ def ptxas_lines(source):
             or "stack frame" in line]
 
 
-def device_ms_by_kernel(fn, name="", calls=1, exclude=()):
-    """Device time per call of fn, {kernel name: ms}, of the kernels whose
-    name holds `name` (every kernel for "") and none of the strings in
-    `exclude`, by torch.profiler over `calls` calls after one unprofiled
-    call. The window starts with a spin kernel of about a millisecond,
-    left out of the sum: the device records of a window's first fraction
-    of a millisecond can go missing."""
+def device_by_kernel(fn, name="", calls=1, exclude=()):
+    """Device time and launches per call of fn, {kernel name: [ms,
+    launches]}, of the kernels whose name holds `name` (every kernel for
+    "") and none of the strings in `exclude`, by torch.profiler over
+    `calls` calls after one unprofiled call. The window starts with a
+    spin kernel of about a millisecond, left out of the sum: the device
+    records of a window's first fraction of a millisecond can go
+    missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -88,9 +89,17 @@ def device_ms_by_kernel(fn, name="", calls=1, exclude=()):
                 and not any(x in e.key for x in exclude)):
             m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
             key = m.group(1) if m else e.key[:60]
-            out[key] = out.get(key, 0.0) + (
-                e.self_device_time_total / 1e3 / calls)
+            v = out.setdefault(key, [0.0, 0.0])
+            v[0] += e.self_device_time_total / 1e3 / calls
+            v[1] += e.count / calls
     return out
+
+
+def device_ms_by_kernel(fn, name="", calls=1, exclude=()):
+    """Device time per call of fn, {kernel name: ms}: device_by_kernel
+    without the launches."""
+    return {k: v[0] for k, v in
+            device_by_kernel(fn, name, calls, exclude).items()}
 
 
 def device_ms(fn, name="", calls=1):
