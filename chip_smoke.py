@@ -29,7 +29,19 @@ to 0 just before it and read just after:
     multitaper coherence of its first 16384 samples;
   * the K8 phase: the three transpose kernels (K8a-c), which no route
     calls, each called once through its wrapper at full size and held
-    bit for bit to its plain version.
+    bit for bit to its plain version;
+  * the sharded phase: dsptpu_torch.parallel on a single-rank NCCL
+    process group (init_distributed) at world size 1, each sharded call
+    against the unsharded port call on the card: sharded_entry() (the
+    main path's chain up to Welch, K2 with need_state), shard_filtfilt
+    of the main stream, shard_fftfilt of path A's stream (K4),
+    shard_resample at 3/2 through compact_shards and shard_mt_coherence
+    at path D's shape; each K2 and K4 launch of those calls against its
+    plain version on the input the call gave it (K4 on the
+    halo-extended block, K2 on shard_filtfilt's padded and flipped
+    blocks); K2 with need_state against its plain version at
+    1,000,000 x 64 on the stream; the main stream read from a file through
+    native.StreamReader to the card; utils.profiling on K1.
 
 Each path's output is compared with a float64 run of the same call on
 the card. The STFT kernel is also held to its plain version bin by bin,
@@ -43,6 +55,7 @@ and, last, {"ok": true, "device": {...}}. Any failure raises, so the
 script exits non-zero and prints no result; it also fails without CUDA.
 """
 
+import inspect
 import json
 import os
 import re
@@ -1280,6 +1293,299 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
     return counts, rows
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _timed_pair(label, sharded, plain):
+    """One line per sharded call beside its unsharded counterpart: the
+    call's CUDA-event ms (median of 5), its device ms by torch.profiler
+    (the leading spin left out) and its idle share; then the sharded
+    call's five largest device times by kernel."""
+    out = {}
+    for what, fn in (("sharded", sharded), ("unsharded", plain)):
+        ms = time_ms(fn, reps=5, warmup=1)
+        by = device_by_kernel(fn, calls=2)
+        out[what] = (ms, sum(v[0] for v in by.values()))
+        if what == "sharded":
+            top = sorted(by.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"  {label}: " + "; ".join(
+        f"{what} {ms:.3f} ms, device {dev_ms:.3f} ms, idle share "
+        f"{max(0.0, 1 - dev_ms / ms):.3f}"
+        for what, (ms, dev_ms) in out.items()))
+    log(f"    {label} sharded, device ms a call by kernel: " + ", ".join(
+        f"{k[:48]} {v[0]:.3f} x {v[1]:.0f}" for k, v in top))
+    return out
+
+
+class KernelInputs:
+    """Within a `with` block, every call of the wrappers named in `names`
+    ({module: [function name]}) records its arguments, tensors cloned
+    before the call, and then runs as before (its launch counted as
+    before); the wrappers are restored on exit. `calls[name]` lists the
+    (args, kwargs) of each call in order."""
+
+    def __init__(self, names):
+        self.names = names
+        self.calls = {f: [] for fs in names.values() for f in fs}
+
+    def __enter__(self):
+        import torch
+
+        def own(v):
+            return v.clone() if isinstance(v, torch.Tensor) else v
+
+        def recording(fn, into):
+            def call(*a, **kw):
+                into.append(([own(v) for v in a],
+                             {k: own(v) for k, v in kw.items()}))
+                return fn(*a, **kw)
+            return call
+        self.saved = []
+        for mod, fs in self.names.items():
+            for f in fs:
+                self.saved.append((mod, f, getattr(mod, f)))
+                setattr(mod, f, recording(getattr(mod, f), self.calls[f]))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, f, fn in self.saved:
+            setattr(mod, f, fn)
+
+
+def path_sharded(dev, n=1_000_000, C=64, na=10_000_000, Ca=16,
+                 nc=10_000_000, coh_n=16384):
+    """The sharded phase at world size 1 (full width by default): the
+    port's parallel/ ops on a single-rank process group (NCCL on the
+    card) joined through init_distributed, each against the unsharded
+    port call at the bound chip_smoke holds that call to; K2 with
+    need_state at (n, C) against its plain version; the K2 and K4
+    launches of the sharded calls; native.StreamReader reading the main
+    stream from a file to the device; profiling.measure and
+    Roofline.fractions on K1. Destroys the process group at the end."""
+    import torch
+    import torch.distributed as dist
+    from dsptpu_torch import parallel
+
+    port = _free_port()
+    if not parallel.init_distributed(f"localhost:{port}", 1, 0,
+                                     device_type=dev.type):
+        raise AssertionError("sharded phase: a process group exists")
+    try:
+        mesh = parallel.make_mesh(device_type=dev.type)
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one, group=mesh.get_group("time"))
+        log(f"sharded phase: {dist.get_backend()} process group of "
+            f"{dist.get_world_size()} rank on localhost:{port}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
+            f"all_reduce {one.item()}")
+        return _sharded_calls(dev, mesh, n, C, na, Ca, nc, coh_n)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_calls(dev, mesh, n, C, na, Ca, nc, coh_n):
+    """path_sharded's calls and checks on `mesh`; returns (the launch
+    counts of the sharded calls, {call: {"sharded"/"unsharded": (ms,
+    device ms)}})."""
+    import tempfile
+    import torch
+    import dsptpu_torch
+    from fractions import Fraction
+    from dsptpu_torch import kernels, native, parallel
+    from dsptpu_torch.filters.filt import _cascade_ss
+    from dsptpu_torch.kernels import biir, fir, osconv
+    from dsptpu_torch.pipeline import (MT_NTAPERS, MT_NW, chain_params,
+                                       fftfilt_taps)
+    from dsptpu_torch.utils import profiling
+
+    taps, sos, win = chain_params()
+    nfft = win.shape[0]
+    fwd, (xd,) = dsptpu_torch.sharded_entry(mesh, n=n, channels=C)
+    x = xd.to_local()                       # world size 1: the whole stream
+    f = dsptpu_torch.as_sos(dsptpu_torch.digitalfilter(
+        dsptpu_torch.Lowpass(0.2), dsptpu_torch.Butterworth(8)))
+    tt = torch.as_tensor(taps, device=dev)
+    h = torch.as_tensor(fftfilt_taps(), device=dev)
+    xa = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (na, Ca)).astype(np.float32), device=dev)
+    xc = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        nc).astype(np.float32), device=dev)
+    r32 = Fraction(3, 2)
+    h32 = np.asarray(dsptpu_torch.resample_filter(r32), dtype=np.float32)
+    coh_cfg = dsptpu_torch.MTCoherenceConfig.create(
+        C, mt_config=dsptpu_torch.MTConfig.create(
+            coh_n, nfft=coh_n, nw=MT_NW, ntapers=MT_NTAPERS))
+    xm = x[:coh_n].T
+
+    def welch_chain(x):
+        y = dsptpu_torch.sosfilt(sos, dsptpu_torch.filt(tt, x))
+        return dsptpu_torch.power(dsptpu_torch.welch_pgram(
+            y, nfft, nfft // 2, window=win))
+
+    def resample_sharded():
+        y, cnt = parallel.shard_resample(h32, r32, xc, mesh)
+        return parallel.compact_shards(y, cnt)
+
+    calls = {
+        "sharded_entry": (lambda: fwd(xd), lambda: welch_chain(x)),
+        "shard_filtfilt": (
+            lambda: parallel.shard_filtfilt(f.sos_array(), f.g, xd, mesh),
+            lambda: dsptpu_torch.filtfilt(f, x)),
+        "shard_fftfilt": (
+            lambda: parallel.shard_fftfilt(h, xa, mesh),
+            lambda: dsptpu_torch.fftfilt(h, xa)),
+        "shard_resample": (
+            resample_sharded,
+            lambda: dsptpu_torch.FIRFilter(h32, r32).filt(xc)),
+        "shard_mt_coherence": (
+            lambda: parallel.shard_mt_coherence(xm, mesh,
+                                                config=coh_cfg).coherence,
+            lambda: dsptpu_torch.mt_coherence(xm, config=coh_cfg).coherence)}
+    log(f"sharded phase: main stream ({n}, {C}), path A's ({na}, {Ca}) "
+        f"with {h.shape[0]} taps, path C's ({nc},) at {r32}, coherence of "
+        f"({C}, {coh_n})")
+
+    # each sharded call once, with the launch counts set to 0 just before
+    # and read just after, and the inputs of its K2 and K4 launches kept;
+    # its result against the unsharded call's
+    counts = {}
+    outs = {}
+    seen = {}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    for name, (sharded, _) in calls.items():
+        before = kernels.launch_counts()
+        with KernelInputs({biir: ["blockss_filt"],
+                           osconv: ["osconv"]}) as got:
+            outs[name] = sharded()
+            torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        counts[name] = {k: after[k] - before[k] for k in after
+                        if after[k] - before[k]}
+        seen[name] = got.calls
+        if (len(got.calls["blockss_filt"]) != counts[name].get("biir", 0)
+                or len(got.calls["osconv"])
+                != counts[name].get("osconv", 0)):
+            raise AssertionError(f"{name}: K2/K4 launches {counts[name]} "
+                                 "not all through the wrappers")
+    total = kernels.launch_counts()
+    log(f"sharded phase: launches {counts}")
+    if total["biir"] < 2 or total["osconv"] < 1:
+        raise AssertionError(f"sharded phase missed K2 or K4: {counts}")
+    for name in ("sharded_entry", "shard_filtfilt"):
+        if counts[name].get("biir", 0) < 1:
+            raise AssertionError(f"{name}: no K2 pass: {counts[name]}")
+    if counts["shard_fftfilt"].get("osconv", 0) < 1:
+        raise AssertionError(f"shard_fftfilt: no K4 launch: "
+                             f"{counts['shard_fftfilt']}")
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+    psd = local(outs["sharded_entry"])
+    ref = welch_chain(x)
+    top = per_bin(ref) >= 1e-4 * ref.abs().max()
+    compare("psd", psd, ref, "sharded_entry vs the main path's chain to "
+            "Welch", tol=1e-4)
+    compare("psd", psd[top], ref[top], f"sharded_entry vs the main path's "
+            f"chain, {int(top.sum())} bins within 40 dB", by_bin=True,
+            tol=1e-4)
+    compare("biir_reverse", local(outs["shard_filtfilt"]),
+            dsptpu_torch.filtfilt(f, x), "shard_filtfilt vs filtfilt")
+    compare("osconv", local(outs["shard_fftfilt"]), calls["shard_fftfilt"][1](),
+            "shard_fftfilt vs fftfilt")
+    compare("pfb2", local(outs["shard_resample"]), calls["shard_resample"][1](),
+            "shard_resample + compact_shards vs FIRFilter.filt")
+    compare("coherence", local(outs["shard_mt_coherence"]),
+            calls["shard_mt_coherence"][1](),
+            "shard_mt_coherence vs mt_coherence")
+    del outs
+
+    # each K2 and K4 launch of the sharded calls against its plain
+    # version on the same input: K4 on shard_fftfilt's halo-extended
+    # block, K2 on shard_filtfilt's padded block, its masked and flipped
+    # forward output and its zero-input responses, K2 with need_state in
+    # sharded_entry
+    def bound_args(fn, a, kw):
+        b = inspect.signature(fn).bind(*a, **kw)
+        b.apply_defaults()
+        return b.arguments
+
+    for name, got in seen.items():
+        for i, (a, kw) in enumerate(got["blockss_filt"]):
+            g = bound_args(biir.blockss_filt, a, kw)
+            what = (f"{name}'s launch {i + 1} ({tuple(g['x'].shape)}, "
+                    f"need_state {g['need_state']}, reverse {g['reverse']},"
+                    f" n_eff {g['n_eff']}, z0 "
+                    f"{'set' if g['z0'].any() else '0'})")
+            y = biir.blockss_filt(*a, **kw)
+            yr = biir.blockss_reference(*a, **kw)
+            if g["need_state"]:
+                compare("biir", y[0], yr[0], f"{what} y")
+                compare("biir", y[1], yr[1], f"{what} final state")
+            else:
+                compare("biir", y, yr, f"{what} y")
+            del y, yr
+        for i, (a, kw) in enumerate(got["osconv"]):
+            g = bound_args(osconv.osconv, a, kw)
+            what = (f"{name}'s launch {i + 1} ({tuple(g['u'].shape)}, "
+                    f"{g['v'].shape[0]} taps, nfft {g['nfft']}, out_len "
+                    f"{g['out_len']})")
+            compare("osconv", osconv.osconv(*a, **kw),
+                    osconv.osconv_reference(*a, **kw), what)
+    del seen
+
+    # K2 with need_state at the main path's width, against its plain
+    # version: y and the final state
+    ss = _cascade_ss(sos.astype(np.float64), 1.0)
+    z0 = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (ss.p, C)).astype(np.float32), device=dev)
+    y, zf = biir.blockss_filt(ss, x, z0, need_state=True)
+    yr, zr = biir.blockss_reference(ss, x, z0, need_state=True)
+    compare("biir", y, yr, f"need_state y ({n}, {C})")
+    compare("biir", zf, zr, f"need_state final state ({n}, {C})")
+    del y, yr
+
+    # each sharded call's time beside the unsharded call's
+    log("sharded phase, times (world size 1):")
+    times = {name: _timed_pair(name, *pair) for name, pair in calls.items()}
+
+    # the main stream through a file and the native reader to the device
+    if not native.native_available():
+        raise AssertionError("native: the ring buffer did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.f32")
+        x.cpu().numpy().tofile(path)
+        chunk = 1 << 16
+        t0 = time.perf_counter()
+        with native.StreamReader(path, chunk=chunk, dtype=np.float32,
+                                 channels=C, device=dev) as sr:
+            parts = list(sr)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        if parts[0].device.type != dev.type:
+            raise AssertionError("native: chunks not on the device")
+        exact("stream", torch.cat(parts), x, f"StreamReader, {len(parts)} "
+              f"chunks of {chunk} x {C}, vs the stream")
+        log(f"  native StreamReader: {x.numel() * 4 / 1e6:.0f} MB in "
+            f"{read_s * 1e3:.1f} ms ({x.numel() * 4 / read_s / 1e9:.2f} "
+            "GB/s, file in the page cache, host clock)")
+        del parts
+
+    # profiling.measure and Roofline.fractions on K1 at the main path's
+    # shape
+    sec = profiling.measure(fir.fir, x, tt)
+    nb = tt.shape[0]
+    fr = profiling.Roofline().fractions(sec, min_bytes=2 * n * C * 4 + nb * 4,
+                                        flops=2 * nb * n * C)
+    log(f"  profiling.measure(fir.fir) {sec * 1e3:.4f} ms, Roofline "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fr.items()))
+    return total, times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1488,6 +1794,9 @@ def main():
     _, rows_d = path_d(dev)
     torch.cuda.empty_cache()
     _, rows_k8 = path_k8(dev)
+    torch.cuda.empty_cache()
+    path_sharded(dev)
+    torch.cuda.empty_cache()
     for r in rows:
         r["launches"] = counts[r["name"]]
     for r in rows_a:

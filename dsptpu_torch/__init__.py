@@ -17,11 +17,18 @@ streaming polyphase resampling, FIRFilter / resample / polyphase_filt
 (rational K6, arbitrary rate K7); frequency estimation; the signal
 utilities (hilbert, dB helpers, delay and alignment, unwrap, diric).
 The layout kernels K8a-c (kernels/transpose.py) are on no route, as in
-dsptpu. Not ported yet: parallel/, native/ and utils/profiling.py (see
-ROADMAP.md).
+dsptpu.
+
+Also the rest of dsptpu: parallel/, the sharded ops on a torch
+DeviceMesh (halos and state chains on torch.distributed, NCCL on the
+card, gloo on the CPU; simulate_hosts runs n gloo ranks on the CPU, and
+sharded_entry / dryrun_multichip drive them); native/, the C++ prefetch
+reader StreamReader, each chunk through a pinned buffer to the card; and
+utils/profiling.py (torch.profiler traces, CUDA-event timing, the H100's
+roofline).
 """
 
-from . import filters, kernels, ops, utils
+from . import filters, kernels, ops, parallel, utils
 from .ops import windows
 from .filters import (filt, sosfilt, sos_arrays, ZeroPoleGain,
                       PolynomialRatio, Biquad, SecondOrderSections, coefb,
@@ -61,4 +68,5 @@ from .utils.fftutil import (nextfastfft, nextpow2, fftintype, fftouttype,
 from .utils.unwrap import unwrap
 from .utils.diric import diric
 from .pipeline import (entry, fftfilt_entry, filtfilt_lpc_entry,
-                       resample_entry, multitaper_entry)
+                       resample_entry, multitaper_entry, sharded_entry,
+                       dryrun_multichip)

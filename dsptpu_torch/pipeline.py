@@ -5,6 +5,11 @@ dsptpu's __graft_entry__.entry; and the drivers of the other paths
     filt(b, x)  (127-tap FIR, K1) -> sosfilt(sos, y)  (SOS cascade, K2)
     -> welch_pgram + stft(psdonly=True)  (K3) -> power
 
+`sharded_entry()` runs dsptpu's multi-chip chain (bench.py's
+weak-scaling pipeline, shard_fir -> shard_sosfilt -> shard_welch) on a
+DeviceMesh of every rank; `dryrun_multichip(n)` holds the sharded ops
+against the unsharded ones on n simulated hosts (gloo ranks on the CPU).
+
 `entry()` defaults to the full-width configuration, the 64-channel
 stream of dsptpu's BASELINE.json (bench.py's welch/spectrogram config
 and weak-scaling pipeline): x (1,000,000 x 64) float32, the 127-tap
@@ -42,7 +47,8 @@ from .utils.device import check_full_f32, resolve_device
 
 __all__ = ["entry", "chain_params", "fftfilt_entry", "fftfilt_taps",
            "filtfilt_lpc_entry", "resample_entry", "RESAMPLE_RATES",
-           "multitaper_entry", "MT_NFFT", "MT_OVERLAP", "MT_NW", "MT_NTAPERS"]
+           "multitaper_entry", "MT_NFFT", "MT_OVERLAP", "MT_NW", "MT_NTAPERS",
+           "sharded_entry", "dryrun_multichip"]
 
 
 def chain_params(order=8, cutoff=0.2, nfft=1024):
@@ -200,3 +206,144 @@ def multitaper_entry(device="cuda", n=1_000_000, channels=64, coh_n=16384):
         return p, mt_coherence(x[:coh_n].T, config=coh_cfg).coherence
 
     return forward, (_stream(dev, n, channels),)
+
+
+def sharded_entry(mesh=None, device="cuda", n=1_000_000, channels=64):
+    """(forward, (x,)): dsptpu's multi-chip chain (bench.py's weak-scaling
+    pipeline) on `mesh` (default: make_mesh() over every rank, started
+    with one rank if no process group exists, on `device`). forward(x)
+    maps x (n, channels) to the Welch PSD (nfft//2+1, channels),
+    replicated over the mesh's time axis:
+
+        shard_fir (127-tap Lowpass(0.25) Hamming) -> shard_sosfilt
+        (Butterworth(8) at 0.2 as 4 sections, gain 1) -> shard_welch
+        (nfft 1024, hop 512, Hanning)
+
+    the taps, sections and window of entry(), whose chain up to Welch it
+    equals. x is this rank's block of the standard normal float32 stream
+    of numpy seed 0 (entry()'s x), as a DTensor sharded along time: the
+    counterpart of the global array bench.py assembles from each host's
+    block."""
+    from .parallel import (make_mesh, shard_fir, shard_sosfilt, shard_time,
+                           shard_welch)
+    if mesh is None:
+        mesh = make_mesh(device_type=resolve_device(device).type)
+    if mesh.device_type == "cuda":
+        check_full_f32()
+    taps, sos, win = chain_params()
+    nfft = win.shape[0]
+    taps = torch.as_tensor(taps, device=mesh.device_type)
+
+    def forward(x):
+        """x: (n, channels) -> psd (nfft//2+1, channels), in x's dtype."""
+        y = shard_fir(taps, x, mesh)
+        y = shard_sosfilt(sos, 1.0, y, mesh)
+        return shard_welch(y, nfft, nfft // 2, win, mesh)[0]
+
+    rng = np.random.default_rng(0)
+    x = shard_time(rng.standard_normal((n, channels)).astype(np.float32),
+                   mesh)
+    return forward, (x,)
+
+
+def _max_err(name, got, want, atol):
+    """max |got - want| of a sharded result (its full value) against the
+    unsharded one; raises past atol."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    got, want = got.double(), want.double()
+    if got.shape != want.shape:
+        raise AssertionError(f"sharded {name}: shape {tuple(got.shape)}, "
+                             f"unsharded {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not err <= atol:
+        raise AssertionError(f"sharded {name} != unsharded: max|d| {err:.3e}"
+                             f" > {atol:.0e}")
+    return err
+
+
+def _dryrun_witnesses(mesh):
+    """dryrun_multichip's step on one rank: the sharded fir + sosfilt +
+    welch chain, spectrogram, resample through compact_shards and
+    filtfilt, each against the unsharded op on the whole signal (tiny
+    shapes: 128 samples a time shard), and sharded_entry's chain against
+    entry()'s. Returns {name: max|d|}."""
+    from .filters import Biquad, SecondOrderSections, resample_filter
+    from .ops.periodograms import spectrogram
+    from .parallel import (compact_shards, shard_filtfilt, shard_fir,
+                           shard_resample, shard_sosfilt, shard_spectrogram,
+                           shard_time, shard_welch)
+    ntime = mesh.size(mesh.mesh_dim_names.index("time"))
+    nch = mesh.size(mesh.mesh_dim_names.index("channel"))
+    n, nchan, nseg, hop = 128 * ntime, 2 * nch, 32, 16
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal((n, nchan)).astype(np.float32)
+    b = np.asarray(digitalfilter(Lowpass(0.3), FIRWindow.create(
+        np.asarray(windows.hamming(17)))), dtype=np.float32)
+    sos = np.asarray([[0.2, 0.1, 0.05, -0.3, 0.2],
+                      [0.15, 0.05, 0.02, -0.1, 0.05]], np.float32)
+    win = np.asarray(windows.hanning(nseg)).astype(np.float32)
+    dev = torch.device(mesh.device_type)
+    x = torch.as_tensor(x_np, device=dev)
+    xs = shard_time(x_np, mesh, channel_axis="channel")
+    errs = {}
+
+    y = shard_fir(b, xs, mesh, channel_axis="channel")
+    y = shard_sosfilt(sos, 1.0, y, mesh, channel_axis="channel")
+    psd, _ = shard_welch(y, nseg, nseg - hop, win, mesh,
+                         channel_axis="channel")
+    y_ref = sosfilt(sos, filt(torch.as_tensor(b, device=dev), x))
+    psd_ref = power(welch_pgram(y_ref, nseg, nseg - hop, window=win))
+    errs["fir+sosfilt+welch"] = _max_err("fir+sosfilt+welch", psd, psd_ref,
+                                         1e-4)
+
+    pw, _, _ = shard_spectrogram(x, nseg, hop, win, mesh,
+                                 channel_axis="channel")
+    ref = spectrogram(x, nseg, nseg - hop, window=win).power
+    pw = pw.full_tensor()
+    k = ref.shape[1]
+    if pw[k:].abs().max() != 0:
+        raise AssertionError("sharded spectrogram: non-zero masked rows")
+    errs["spectrogram"] = _max_err("spectrogram", pw[:k], ref.movedim(0, 1),
+                                   1e-4)
+
+    ratio = Fraction(3, 2)
+    h = np.asarray(resample_filter(ratio)).astype(np.float32)
+    yr, cnt = shard_resample(h, ratio, xs, mesh, channel_axis="channel")
+    errs["resample"] = _max_err("resample", compact_shards(yr, cnt),
+                                FIRFilter(h, ratio).filt(x), 1e-5)
+
+    yz = shard_filtfilt(sos, 1.0, xs, mesh, channel_axis="channel")
+    sos_obj = SecondOrderSections([Biquad(*row) for row in
+                                   np.asarray(sos, np.float64)])
+    errs["filtfilt"] = _max_err("filtfilt", yz, filtfilt(sos_obj, x), 1e-4)
+
+    # sharded_entry's chain (nfft 1024) against entry()'s, at 1024
+    # samples a time shard, relative to the PSD's largest bin
+    fwd, (xe,) = sharded_entry(mesh, n=1024 * ntime, channels=nchan)
+    ref, _ = entry(device=mesh.device_type, n=1024 * ntime,
+                   channels=nchan)[0](xe.full_tensor())
+    top = ref.abs().max()
+    errs["sharded_entry"] = _max_err("sharded_entry", fwd(xe) / top,
+                                     ref / top, 3e-5)
+    return errs
+
+
+def dryrun_multichip(n_devices):
+    """The counterpart of dsptpu's __graft_entry__.dryrun_multichip: n
+    simulated hosts (gloo ranks on the CPU, parallel.simulate_hosts) on
+    a ('channel', 'time') mesh of (2, n/2) for even n > 1, else (1, n),
+    run the sharded fir + sosfilt + welch chain, spectrogram, resample
+    through compact_shards and filtfilt, each against the unsharded op,
+    and sharded_entry's chain against entry()'s; raises on a mismatch.
+    Prints and returns {name: max|d|}."""
+    from .parallel import simulate_hosts
+    nch = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    with simulate_hosts(n_devices) as pool:
+        errs = pool.run(_dryrun_witnesses,
+                        mesh=(nch, n_devices // nch))[0]
+    print(f"dryrun_multichip OK on {n_devices} simulated hosts (mesh "
+          f"{nch} x {n_devices // nch}); max|sharded-unsharded|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs

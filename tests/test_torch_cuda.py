@@ -910,3 +910,58 @@ def test_biir_kernel_repeats_bit_for_bit(dev, mode, route):
     torch.cuda.synchronize()
     for u, v in (zip(a, b) if kw["need_state"] else [(a, b)]):
         assert torch.equal(u, v)
+
+
+# ---------------------------------------------------------------------------
+# the sharded layer at world size 1 (one card), native/ to the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """make_mesh on the card with no process group: a single-rank NCCL
+    group, destroyed after the test."""
+    import torch.distributed as dist
+    from dsptpu_torch import parallel
+    assert not dist.is_initialized()
+    mesh = parallel.make_mesh(device_type="cuda")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_parallel_world_size_one_nccl_mesh(nccl_mesh):
+    import torch.distributed as dist
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert nccl_mesh.device_type == "cuda"
+    assert nccl_mesh.mesh_dim_names == ("channel", "time")
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one, group=nccl_mesh.get_group("time"))
+    assert one.item() == 1.0
+
+
+def test_shard_sosfilt_runs_k2_need_state(dev, nccl_mesh):
+    """shard_sosfilt equals sosfilt at 65,536 x 64 through one K2 pass
+    with need_state (the boundary state the chain across shards reads)."""
+    from dsptpu_torch import parallel
+    from dsptpu_torch.pipeline import chain_params
+    sos = chain_params()[1]
+    x = randn(dev, 65_536, 64, seed=9)
+    y = launched_once("biir", lambda: parallel.shard_sosfilt(
+        sos, 1.0, x, nccl_mesh))
+    assert y.shape == x.shape and y.to_local().device.type == "cuda"
+    check(y.to_local(), dsptpu_torch.sosfilt(sos, x), 1e-4)
+
+
+def test_stream_reader_to_cuda(dev, tmp_path):
+    """native.StreamReader copies each chunk through a pinned buffer to
+    the card; the chunks equal the file's samples."""
+    from dsptpu_torch.native import StreamReader
+    x = np.random.default_rng(10).standard_normal((70_001, 4)).astype(
+        np.float32)
+    p = tmp_path / "stream.f32"
+    x.tofile(p)
+    with StreamReader(str(p), chunk=8192, channels=4, nslots=3) as sr:
+        parts = list(sr)
+    assert all(c.device.type == "cuda" for c in parts)
+    assert torch.equal(torch.cat(parts).cpu(), torch.as_tensor(x))
