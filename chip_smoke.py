@@ -41,7 +41,14 @@ to 0 just before it and read just after:
     halo-extended block, K2 on shard_filtfilt's padded and flipped
     blocks); K2 with need_state against its plain version at
     1,000,000 x 64 on the stream; the main stream read from a file through
-    native.StreamReader to the card; utils.profiling on K1.
+    native.StreamReader to the card; utils.profiling on K1;
+  * the bench phase: dsptpu_torch.bench, dsptpu's five BASELINE configs
+    at full scale (K1, K4, K3, K6 and K7, K2 and K5), each call held to
+    bench.py's float64 witnesses and timed (events, device time, idle
+    share, bound, launches); its JSON line is logged;
+  * the examples phase: examples/torch_audio_pipeline.py,
+    torch_distributed_pipeline.py (a single-rank NCCL mesh) and
+    torch_streaming_io.py on the card, each checking its own claims.
 
 Each path's output is compared with a float64 run of the same call on
 the card. The STFT kernel is also held to its plain version bin by bin,
@@ -58,7 +65,6 @@ script exits non-zero and prints no result; it also fails without CUDA.
 import inspect
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -707,6 +713,7 @@ def path_b(dev):
     from dsptpu_torch.filters.filt import _cascade_ss
     from dsptpu_torch.kernels import biir, levinson
     from dsptpu_torch.ops.lpc import _biased_lags
+    from dsptpu_torch.utils import profiling
 
     forward, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda")
     n, C = x.shape
@@ -755,7 +762,7 @@ def path_b(dev):
     lag_launches = {}
     for form, fn in (("17 sums", lambda: lags_17(frames, p)),
                      ("one batched pass", lambda: _biased_lags(frames, p))):
-        by = device_by_kernel(fn)
+        by = profiling.device_by_kernel(fn, log=log)
         lag_launches[form] = sum(v[1] for v in by.values())
         log(f"  path B lags ({form}): device "
             f"{sum(v[0] for v in by.values()):.4f} ms in "
@@ -780,7 +787,8 @@ def path_b(dev):
                                   levinson.levinson(Rk, pk),
                                   levinson.levinson_reference(Rk, pk)):
                 compare("levinson", g, w, f"{name}, {what}")
-        by = device_by_kernel(lambda: levinson.levinson(Rk, pk))
+        by = profiling.device_by_kernel(lambda: levinson.levinson(Rk, pk),
+                                        log=log)
         log(f"  levinson at {what}: device "
             f"{sum(v[0] for v in by.values()):.5f} ms a call (profiler, 10 "
             f"calls), events "
@@ -1194,36 +1202,6 @@ def path_d(dev, n=1_000_000, coh_n=16384):
     return counts, [row]
 
 
-def device_by_kernel(fn, flush=None, calls=10):
-    """Device time and launches per call of fn by kernel, {name: [ms,
-    launches]}, by torch.profiler over `calls` calls, each after
-    flush.zero_() where flush is given (a write larger than the 50 MB L2;
-    its fill kernel is then left out, as is the leading spin)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(2_000_000)
-        for _ in range(calls):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and "spin" not in e.key and not (
-                    flush is not None and "FillFunctor" in e.key)):
-            m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
-            key = m.group(1) if m else e.key[:60]
-            v = out.setdefault(key, [0.0, 0.0])
-            v[0] += e.self_device_time_total / 1e3 / calls
-            v[1] += e.count / calls
-    return out
-
-
 def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
             perm=(64, 8, 8, 256, 65), TR=8192):
     """The K8 phase: the transpose kernels, which no route of the port
@@ -1240,6 +1218,7 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
     import torch
     from dsptpu_torch import kernels
     from dsptpu_torch.kernels import transpose as tp
+    from dsptpu_torch.utils import profiling
 
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((n, C)).astype(np.float32),
@@ -1287,7 +1266,8 @@ def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
             ms=time_ms(kern, inner=10), plain_ms=time_ms(plain, reps=5),
             library_ms=time_ms(lib, inner=10), bound=bound(nbytes, 0)))
         report(rows[-1])
-        dev_ms = {k: v[0] for k, v in device_by_kernel(kern, flush).items()}
+        dev_ms = {k: v[0] for k, v in profiling.device_by_kernel(
+            kern, flush=flush, log=log).items()}
         log(f"  {name}: device time per call {sum(dev_ms.values()):.4f} ms "
             f"(L2 flushed before each call) by kernel {dev_ms}")
     return counts, rows
@@ -1305,10 +1285,11 @@ def _timed_pair(label, sharded, plain):
     call's CUDA-event ms (median of 5), its device ms by torch.profiler
     (the leading spin left out) and its idle share; then the sharded
     call's five largest device times by kernel."""
+    from dsptpu_torch.utils import profiling
     out = {}
     for what, fn in (("sharded", sharded), ("unsharded", plain)):
         ms = time_ms(fn, reps=5, warmup=1)
-        by = device_by_kernel(fn, calls=2)
+        by = profiling.device_by_kernel(fn, calls=2, log=log)
         out[what] = (ms, sum(v[0] for v in by.values()))
         if what == "sharded":
             top = sorted(by.items(), key=lambda kv: -kv[1][0])[:5]
@@ -1586,6 +1567,65 @@ def _sharded_calls(dev, mesh, n, C, na, Ca, nc, coh_n):
     return total, times
 
 
+# the kernels each bench config's calls must launch on the card
+BENCH_KERNELS = {
+    "fir_127tap": {"filt": ("fir",)},
+    "os_4096tap_16ch": {"fftfilt": ("osconv",)},
+    "welch_spectrogram_1024_64ch": {"welch": ("stft",),
+                                    "spectrogram": ("stft",)},
+    "resample_147_160": {"resample_147_160": ("pfb2",),
+                         "resample_3_2": ("pfb2",),
+                         "resample_arb_0p9997": ("arbd",)},
+    "filtfilt_lpc16": {"filtfilt": ("biir",), "lpc": ("levinson",)}}
+
+
+def path_bench():
+    """The bench phase: dsptpu_torch.bench's five BASELINE configs at full
+    scale on the card, with the kernels chip_smoke built. Logs the
+    bench's JSON line and each call's times; fails if a config raised,
+    a witness is past its tolerance, a profile held no device record or
+    a call missed its kernel."""
+    from dsptpu_torch import bench
+    t0 = time.perf_counter()
+    record, failed = bench.run("cuda")
+    log(f"bench phase ({time.perf_counter() - t0:.1f} s), JSON line: "
+        + json.dumps(record))
+    if failed:
+        raise AssertionError(f"bench phase: {failed}")
+    detail = record["extra"]["detail"]
+    for name, calls in BENCH_KERNELS.items():
+        for label, want in calls.items():
+            d = detail[name][label]
+            log(f"  bench {name}/{label}: call {d['call_ms']:.4f} ms "
+                f"({d['call_ms_min']:.4f}-{d['call_ms_max']:.4f}), device "
+                f"{d['device_ms']:.4f} ms, idle share {d['idle_share']:.3f}"
+                f", bound {d['bound_ms']:.4f} ms ({d['bound_by']}), "
+                f"launches {d['launches']}")
+            missing = [k for k in want if not d["launches"].get(k)]
+            if missing or not d["device_ms"] > 0:
+                raise AssertionError(f"bench {name}/{label}: no launch of "
+                                     f"{missing} or no device time: {d}")
+    log("bench phase: witnesses " + ", ".join(
+        f"{k} {v:.2e}" for k, v in record["extra"]["err"].items())
+        + f"; geomean {record['value']:.4g} samples/s, vs scipy "
+        f"{record['vs_baseline']:.4g}")
+
+
+def path_examples(root):
+    """The examples phase: the three examples' main(device="cuda"); a
+    false claim raises SystemExit, which fails the run."""
+    sys.path.insert(0, os.path.join(root, "examples"))
+    import torch_audio_pipeline
+    import torch_distributed_pipeline
+    import torch_streaming_io
+    for mod in (torch_audio_pipeline, torch_distributed_pipeline,
+                torch_streaming_io):
+        log(f"example {mod.__name__} on the card:")
+        t0 = time.perf_counter()
+        mod.main(device="cuda")
+        log(f"example {mod.__name__}: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1796,6 +1836,10 @@ def main():
     _, rows_k8 = path_k8(dev)
     torch.cuda.empty_cache()
     path_sharded(dev)
+    torch.cuda.empty_cache()
+    path_bench()
+    torch.cuda.empty_cache()
+    path_examples(os.path.dirname(os.path.abspath(__file__)))
     torch.cuda.empty_cache()
     for r in rows:
         r["launches"] = counts[r["name"]]

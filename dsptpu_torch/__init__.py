@@ -24,8 +24,12 @@ DeviceMesh (halos and state chains on torch.distributed, NCCL on the
 card, gloo on the CPU; simulate_hosts runs n gloo ranks on the CPU, and
 sharded_entry / dryrun_multichip drive them); native/, the C++ prefetch
 reader StreamReader, each chunk through a pinned buffer to the card; and
-utils/profiling.py (torch.profiler traces, CUDA-event timing, the H100's
-roofline).
+utils/profiling.py (torch.profiler traces, CUDA-event timing, device
+time by kernel, the H100's roofline).
+
+Beside it, bench.py: dsptpu's bench.py on the port, its five BASELINE
+configs with their float64 witnesses and its weak-scaling mode
+(bench_torch.py at the repo root is its command line).
 """
 
 from . import filters, kernels, ops, parallel, utils

@@ -157,6 +157,23 @@ def test_shard_fftfilt(pool, form, nb, dtype, mesh, vs):
     check(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("form", FORMS)
+def test_shard_fir_one_tap(pool, form):
+    """A 1-tap FIR over a (1, 4) mesh equals lfilter in the port. dsptpu's
+    is off, a divergence on purpose: with nb = 1 its halo, xs[-(nb - 1):]
+    (dsptpu/parallel/ops.py:94), is xs[-0:], a whole block, where it
+    should be none."""
+    b = np.array([0.7])
+    x = rng(1001).standard_normal(1001)
+    want = sp.lfilter(b, [1.0], x)
+    got = run(pool, tpar.shard_fir, b, Sharded(x), mesh=(1, 4), form=form)
+    check(got, want, TOL[np.float64])
+    ref = jax_ref(("fir", 1, 1001, "1x4"), lambda x: jpar.shard_fir(
+        b, x, jmesh((1, 4))), x)
+    err = np.max(np.abs(ref - want)) / np.max(np.abs(want))
+    assert err > 1.0, err       # 1.49 of max|ref| on this input
+
+
 def test_shard_fir_refuses_long_history(pool):
     with pytest.raises(RuntimeError, match="filter history"):
         pool.run(tpar.shard_fir, np.ones(40), np.ones(100), mesh=(1, 4))

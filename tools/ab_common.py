@@ -4,7 +4,6 @@ checkouts can be compared in one call (parent, change, change, parent).
 """
 
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -68,31 +67,12 @@ def device_by_kernel(fn, name="", calls=1, exclude=()):
     """Device time and launches per call of fn, {kernel name: [ms,
     launches]}, of the kernels whose name holds `name` (every kernel for
     "") and none of the strings in `exclude`, by torch.profiler over
-    `calls` calls after one unprofiled call. The window starts with a
-    spin kernel of about a millisecond, left out of the sum: the device
-    records of a window's first fraction of a millisecond can go
-    missing."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(2_000_000)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                and "spin" not in e.key and name in e.key
-                and not any(x in e.key for x in exclude)):
-            m = re.search(r"(\w+(?:<[^>]*>)?)\(", e.key)
-            key = m.group(1) if m else e.key[:60]
-            v = out.setdefault(key, [0.0, 0.0])
-            v[0] += e.self_device_time_total / 1e3 / calls
-            v[1] += e.count / calls
-    return out
+    `calls` calls after one unprofiled call:
+    dsptpu_torch.utils.profiling.device_by_kernel, which leaves out the
+    window's leading spin and fails on a profile that stays empty."""
+    from dsptpu_torch.utils import profiling
+    return profiling.device_by_kernel(fn, calls=calls, name=name,
+                                      exclude=exclude)
 
 
 def device_ms_by_kernel(fn, name="", calls=1, exclude=()):
