@@ -575,8 +575,9 @@ def profile_main_path(forward, x, call_ms, counts, label="main path",
     each launch in the profiled calls: the profile is taken again once
     if one is missing, and the run fails if it is still missing. Logs
     K2's device time per pass by stage where the path ran K2, and for
-    `stage`, the name of a record_function range in the path, its host
-    time (the range's CPU events) and the device time of its kernels."""
+    `stage`, the name of a span (utils.profiling.span) in the path, its
+    host time (the range's CPU events) and the device time of its
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     forward(x)

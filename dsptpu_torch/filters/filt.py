@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..ops import dspbase
 from ..ops.dspbase import _as_1d, _flatten_channels, _float_type
 from ..utils.device import as_tensor, full_f32
+from ..utils.profiling import span, spanned, table_cache
 from .coefficients import (PolynomialRatio, Biquad, SecondOrderSections,
                            ZeroPoleGain, as_sos, coefb, coefa)
 
@@ -64,18 +65,14 @@ def _affine_scan(M, u, z0):
 
 
 _REC_BLOCK = 128
-_rec_tables_cache = {}
 
 
+@table_cache("rec", lambda A_np, S: (A_np.tobytes(), A_np.shape[0], S), 256)
 def _rec_tables(A_np, S):
     """Host float64 tables for the blocked vector recurrence with
     transition A (p x p): T2 the (S*p, S*p) lower-triangular
     Toeplitz-of-powers matrix with T2[s*p+a, i*p+b] = (A^{s-i})[a, b]
     for i <= s, AS = A^S, P1 = stacked powers A^1..A^S as (S, p, p)."""
-    key = (A_np.tobytes(), A_np.shape[0], S)
-    hit = _rec_tables_cache.get(key)
-    if hit is not None:
-        return hit
     p = A_np.shape[0]
     powers = np.empty((S + 1, p, p))
     powers[0] = np.eye(p)
@@ -85,11 +82,7 @@ def _rec_tables(A_np, S):
     T = np.where((diff >= 0)[:, :, None, None],
                  powers[np.clip(diff, 0, S)], 0.0)   # (S, S, p, p)
     T2 = T.transpose(0, 2, 1, 3).reshape(S * p, S * p)
-    hit = (T2, powers[S], powers[1: S + 1])
-    if len(_rec_tables_cache) > 256:
-        _rec_tables_cache.clear()
-    _rec_tables_cache[key] = hit
-    return hit
+    return T2, powers[S], powers[1: S + 1]
 
 
 def _const(a, like):
@@ -137,7 +130,6 @@ def _affine_rec(A_np, U, z0):
 # ---------------------------------------------------------------------------
 
 _BLOCKSS_V = 128
-_blockss_tables_cache = {}
 
 
 class _BlockSS:
@@ -174,17 +166,12 @@ class _BlockSS:
         self.sections = sections
 
 
+@table_cache("blockss", lambda A, c, w, d, sections=None: (
+    A.tobytes(), c.tobytes(), w.tobytes(), float(d), A.shape[0],
+    None if sections is None
+    else (sections[0].tobytes(), float(sections[1]))), 256)
 def _blockss(A, c, w, d, sections=None):
-    key = (A.tobytes(), c.tobytes(), w.tobytes(), float(d), A.shape[0],
-           None if sections is None
-           else (sections[0].tobytes(), float(sections[1])))
-    hit = _blockss_tables_cache.get(key)
-    if hit is None:
-        hit = _BlockSS(A, c, w, d, _BLOCKSS_V, sections)
-        if len(_blockss_tables_cache) > 256:
-            _blockss_tables_cache.clear()
-        _blockss_tables_cache[key] = hit
-    return hit
+    return _BlockSS(A, c, w, d, _BLOCKSS_V, sections)
 
 
 def _kernel_iir_ok(ss, n, dtype):
@@ -344,6 +331,7 @@ def _sosfilt(sos, g, x, si, need_state=True):
     return restore(y), si_final
 
 
+@spanned("sosfilt")
 def sosfilt(f, x, si=None, device=None):
     """Filter x along axis 0 through a biquad cascade. `f` is a
     SecondOrderSections, Biquad, or (nsec, 5) [b0 b1 b2 a1 a2] array. If
@@ -493,6 +481,7 @@ def _extrapolate(x, pad):
     return torch.cat([front, x, back], 0)
 
 
+@spanned("filtfilt")
 def filtfilt(f, a=None, x=None, device=None):
     """Zero-phase filtering: forward and reverse pass with steady-state
     initial conditions and odd-symmetric edge extrapolation. Forms:
@@ -570,25 +559,30 @@ def _iir_filtfilt(b, a, x):
 def _filtfilt_sos(f, x, pad=None):
     """SOS cascade (stacked state space, gain included) forward and
     backward; the kernel route where K2's gate holds."""
-    sos, g = sos_arrays(f)
-    nsec = sos.shape[0]
-    if pad is None:
-        pad = 6 * nsec
-    pad = min(pad, x.shape[0] - 1)
-    flat, restore = _flatten_channels(x)
-    n = flat.shape[0]
-    # stacked-state rows ordered (z1_0, z2_0, z1_1, ...) as in _sosfilt
-    ss = _cascade_ss(sos, g)
-    zi_np = np.swapaxes(filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec)
+    with span("filtfilt.design"):
+        sos, g = sos_arrays(f)
+        nsec = sos.shape[0]
+        if pad is None:
+            pad = 6 * nsec
+        pad = min(pad, x.shape[0] - 1)
+        flat, restore = _flatten_channels(x)
+        n = flat.shape[0]
+        # stacked-state rows ordered (z1_0, z2_0, z1_1, ...) as in _sosfilt
+        ss = _cascade_ss(sos, g)
+        zi_np = np.swapaxes(filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec)
     if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
         return restore(_filtfilt_kernel(ss, zi_np, flat, pad, n))
     return restore(_filtfilt_passes(ss, zi_np, flat.to(_float_type(
         flat.dtype)), pad))
 
 
-_ff_tab_cache = {}
+def _ss_key(ss):
+    """The key of a block state-space system's tables."""
+    return ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.A.tobytes()
 
 
+@table_cache("ff_edge", lambda ss, pad, q, tl: (*_ss_key(ss), pad, q, tl),
+             64)
 def _ff_edge_tables(ss, pad, q, tl):
     """Host float64 tables of the kernel route's analytic edges: the
     front extension folded into the forward pass's entering state
@@ -596,11 +590,6 @@ def _ff_edge_tables(ss, pad, q, tl):
     boundary from [tail of y1, back-extension outputs] (Aq, Krq); and
     the closed-form anti-causal outputs over the unaligned tail
     (Fr, Gr)."""
-    key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(),
-           ss.A.tobytes(), pad, q, tl)
-    hit = _ff_tab_cache.get(key)
-    if hit is not None:
-        return hit
     p = ss.p
     A, c, w, d = ss.A, ss.c, ss.G[0], float(ss.F[0, 0])
     mx = max(pad, q) + 1
@@ -623,30 +612,18 @@ def _ff_edge_tables(ss, pad, q, tl):
         Fr[i, i] = d
         if i + 1 < q:
             Fr[i, i + 1:] = wAc[: q - i - 1]
-    if len(_ff_tab_cache) > 64:
-        _ff_tab_cache.clear()
-    hit = _ff_tab_cache[key] = (Apad, Kf, Aq, Krq, Fr, Gr)
-    return hit
+    return Apad, Kf, Aq, Krq, Fr, Gr
 
 
-_ff_dev_cache = {}
-
-
+@table_cache("ff_dev", lambda ss, zst_np, pad, q, tl, device: (
+    *_ss_key(ss), np.asarray(zst_np, np.float64).tobytes(), pad, q, tl,
+    str(device)), 64)
 def _ff_dev_tables(ss, zst_np, pad, q, tl, device):
     """_ff_edge_tables and the step state as float32 tensors on
     `device`, uploaded once per (filter, geometry, device)."""
-    key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.A.tobytes(),
-           np.asarray(zst_np, np.float64).tobytes(), pad, q, tl,
-           str(device))
-    hit = _ff_dev_cache.get(key)
-    if hit is None:
-        host = _ff_edge_tables(ss, pad, q, tl) + (np.asarray(zst_np),)
-        hit = tuple(torch.as_tensor(np.asarray(t, np.float32), device=device)
-                    for t in host)
-        if len(_ff_dev_cache) > 64:
-            _ff_dev_cache.clear()
-        _ff_dev_cache[key] = hit
-    return hit
+    host = _ff_edge_tables(ss, pad, q, tl) + (np.asarray(zst_np),)
+    return tuple(torch.as_tensor(np.asarray(t, np.float32), device=device)
+                 for t in host)
 
 
 @full_f32()
@@ -665,18 +642,24 @@ def _filtfilt_kernel(ss, zst_np, x, pad, n):
     m = (n // V) * V
     q = n - m + pad
     tl = n - m
-    Apad, Kf, Aq, Krq, Fr, Gr, zst = _ff_dev_tables(ss, zst_np, pad, q, tl,
-                                                     x.device)
-    front = 2 * x[0] - x[1: pad + 1].flip(0)            # (pad, C)
-    z_e = Apad @ (zst[:, None] * front[0][None, :]) + Kf @ front
-    back = 2 * x[-1] - x[n - 1 - pad: n - 1].flip(0)    # (pad, C)
-    y1 = blockss_filt(ss, torch.cat([x, back], 0), z_e)   # (n + pad, C)
-    seg = y1[m: n + pad]                                # (q, C)
-    z0r = zst[:, None] * y1[n + pad - 1][None, :]
-    z_rr = Aq @ z0r + Krq @ seg
+    with span("filtfilt.tables"):
+        Apad, Kf, Aq, Krq, Fr, Gr, zst = _ff_dev_tables(ss, zst_np, pad, q,
+                                                         tl, x.device)
+    with span("filtfilt.edges"):
+        front = 2 * x[0] - x[1: pad + 1].flip(0)        # (pad, C)
+        z_e = Apad @ (zst[:, None] * front[0][None, :]) + Kf @ front
+        back = 2 * x[-1] - x[n - 1 - pad: n - 1].flip(0)  # (pad, C)
+        xb = torch.cat([x, back], 0)                    # (n + pad, C)
+    y1 = blockss_filt(ss, xb, z_e)
+    del xb                      # before the reverse pass allocates
+    with span("filtfilt.edges"):
+        seg = y1[m: n + pad]                            # (q, C)
+        z0r = zst[:, None] * y1[n + pad - 1][None, :]
+        z_rr = Aq @ z0r + Krq @ seg
     y2main = blockss_filt(ss, y1, z_rr, reverse=True, n_eff=m)
-    y2tail = Fr @ seg + Gr @ z0r
-    return torch.cat([y2main, y2tail], 0)
+    with span("filtfilt.edges"):
+        y2tail = Fr @ seg + Gr @ z0r
+        return torch.cat([y2main, y2tail], 0)
 
 
 # ---------------------------------------------------------------------------

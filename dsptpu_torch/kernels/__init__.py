@@ -5,6 +5,7 @@ holds its wrappers, their plain PyTorch versions and `launches`, a dict
 of launch counts keyed by kernel name."""
 
 from . import arbd, biir, fir, levinson, osconv, pfb2, stft, transpose
+from ..utils import profiling
 
 # kernel name -> the module that holds it and counts its launches
 KERNELS = {"fir": fir, "biir": biir, "stft": stft, "osconv": osconv,
@@ -14,8 +15,12 @@ KERNELS = {"fir": fir, "biir": biir, "stft": stft, "osconv": osconv,
 
 
 def reset_launches():
+    """Zero the launch counters, and reset utils.profiling's counters and
+    span ring: a window that starts here finds its calls' root spans
+    first in the ring (the benchmark's device-alone profile does)."""
     for mod in KERNELS.values():
         mod.launches.update(dict.fromkeys(mod.launches, 0))
+    profiling.reset()
 
 
 def launch_counts():

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils.profiling import spanned
 
 __all__ = ["Anchor", "RUN", "arbd", "arbd_plan", "arbd_plan_from_anchor",
            "arbd_reference", "arbd_out_len", "arbd_supported",
@@ -274,6 +275,7 @@ def _check_anchor(anchor, hist, out_len):
         raise ValueError(f"arbd kernel: out_len={out_len} < 1")
 
 
+@spanned("kernel.arbd")
 def arbd(hist, x, anchor, pfb, dpfb, out_len, counts=None):
     """Dual-PFB arbitrary-rate outputs of the 1-D float32 stream
     hist ‖ x (hist None: no history) for the stream's `anchor`, pfb and

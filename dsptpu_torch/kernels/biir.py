@@ -40,6 +40,7 @@ import torch
 
 from . import _build
 from ..utils.device import full_f32
+from ..utils.profiling import spanned, table_cache
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
            "launches"]
@@ -53,7 +54,6 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2 + [
 
 _V = 128
 _CHUNK = 64        # rows per chunk (the carry walks n/(128*64) chunk ends)
-_tab_cache = {}
 
 
 def biir_supported(ss, dtype):
@@ -65,6 +65,10 @@ def _padded_p(p):
     return 8 if p <= 8 else (16 if p <= 16 else 32)
 
 
+@table_cache("biir", lambda ss, device: (
+    ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.AV.tobytes(),
+    str(device), None if ss.sections is None
+    else (ss.sections[0].tobytes(), ss.sections[1])), 128)
 def _tables(ss, device):
     """float64 host tables cast to float32, as dsptpu's _dev_tables
     builds them (forward direction), on `device`: h (V,) = F[:, 0] (F is
@@ -73,31 +77,21 @@ def _tables(ss, device):
     a system that carries its sections, their rows [b0 b1 b2 a1 a2] and
     the gain as one (5 nsec + 1,) vector (else None)."""
     sec = ss.sections
-    key = (ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(),
-           ss.AV.tobytes(), str(device),
-           None if sec is None else (sec[0].tobytes(), sec[1]))
-    hit = _tab_cache.get(key)
-    if hit is None:
-        P = _padded_p(ss.p)
+    P = _padded_p(ss.p)
 
-        def pad(m, shape):
-            out = np.zeros(shape)
-            out[: m.shape[0], : m.shape[1]] = m
-            return out
+    def pad(m, shape):
+        out = np.zeros(shape)
+        out[: m.shape[0], : m.shape[1]] = m
+        return out
 
-        host = (ss.F[:, 0], pad(ss.K.T, (_V, P)), pad(ss.G, (_V, P)),
-                pad(ss.AV, (P, P)),
-                pad(np.linalg.matrix_power(ss.AV, _CHUNK), (P, P)))
-        if sec is not None:
-            host += (np.append(sec[0].reshape(-1), sec[1]),)
-        hit = tuple(torch.as_tensor(t.astype(np.float32), device=device)
-                    for t in host)
-        if sec is None:
-            hit += (None,)
-        if len(_tab_cache) > 128:
-            _tab_cache.clear()
-        _tab_cache[key] = hit
-    return hit
+    host = (ss.F[:, 0], pad(ss.K.T, (_V, P)), pad(ss.G, (_V, P)),
+            pad(ss.AV, (P, P)),
+            pad(np.linalg.matrix_power(ss.AV, _CHUNK), (P, P)))
+    if sec is not None:
+        host += (np.append(sec[0].reshape(-1), sec[1]),)
+    hit = tuple(torch.as_tensor(t.astype(np.float32), device=device)
+                for t in host)
+    return hit if sec is not None else hit + (None,)
 
 
 @full_f32()
@@ -174,6 +168,7 @@ def blockss_reference(ss, x, z0, need_state=False, reverse=False,
     return y, _advance_tail(ss, zrow, x, n)
 
 
+@spanned("kernel.biir")
 def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     """Apply the block state-space system `ss` (V = 128) over x (n, C)
     float32 with initial state z0 (p, C). Returns y (n, C), or

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils.profiling import spanned
 
 __all__ = ["fir", "fir_reference", "fir_supported", "launches"]
 
@@ -106,6 +107,7 @@ def _resident(device, plan):
     return _wave[key]
 
 
+@spanned("kernel.fir")
 def fir(x, b):
     """Causal FIR of x (n,) or (n, C) float32 with taps b (nb,) float32,
     zero initial state; output has x's shape."""

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils.profiling import spanned
 
 __all__ = ["levinson", "levinson_reference", "lev_supported", "launches"]
 
@@ -62,6 +63,7 @@ def levinson_reference(R, p):
     return a, err, refl
 
 
+@spanned("kernel.levinson")
 def levinson(R, p):
     """Levinson-Durbin recursion of order p on R (>= p+1, C) float32.
     Returns (a (p, C), err (C,), refl (p, C)), contiguous row views of

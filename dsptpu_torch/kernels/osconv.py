@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils.profiling import spanned, table_cache
 
 __all__ = ["osconv", "osconv_reference", "osconv_supported", "os_fft",
            "launches"]
@@ -46,7 +47,6 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]
 
-_tab_cache = {}
 _spec_cache = {}
 
 
@@ -94,23 +94,19 @@ def osconv_reference(u, v, nfft, out_len):
     return os_fft(u, v, nfft, _advance(nfft, v.shape[0]), out_len)
 
 
+@table_cache("osconv", lambda nfft, device: (nfft, str(device)))
 def _tables(nfft, device):
     """(wn, tw2) float32 twiddles built in float64 on the host:
     wn[e] = exp(-2 pi i e / nfft), e < nfft (the odd radix stage), and
     tw2[j] = exp(-2 pi i j / M), j < M/2, with M the largest power of
     two dividing nfft (the passes' twiddle anchors and the in-register
     DFTs' roots). As (., 2) re/im pairs."""
-    key = (nfft, str(device))
-    hit = _tab_cache.get(key)
-    if hit is None:
-        M = nfft & -nfft
-        wn = np.exp(-2j * np.pi * np.arange(nfft) / nfft)
-        tw2 = np.exp(-2j * np.pi * np.arange(M // 2) / M)
-        hit = tuple(torch.as_tensor(
-            np.stack([t.real, t.imag], -1).astype(np.float32),
-            device=device) for t in (wn, tw2))
-        _tab_cache[key] = hit
-    return hit
+    M = nfft & -nfft
+    wn = np.exp(-2j * np.pi * np.arange(nfft) / nfft)
+    tw2 = np.exp(-2j * np.pi * np.arange(M // 2) / M)
+    return tuple(torch.as_tensor(
+        np.stack([t.real, t.imag], -1).astype(np.float32), device=device)
+        for t in (wn, tw2))
 
 
 def _geometry(M):
@@ -169,6 +165,7 @@ def _spectrum(v, nfft):
     return Hp
 
 
+@spanned("kernel.osconv")
 def osconv(u, v, nfft, out_len=None):
     """Overlap-save convolution of u (n,) or (n, C) float32 with the
     filter v (nv,) float32 in blocks of nfft points; the first out_len

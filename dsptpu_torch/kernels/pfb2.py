@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils.profiling import spanned
 
 __all__ = ["pfb2", "pfb2_reference", "pfb2_supported", "pfb2_default_on",
            "launches"]
@@ -229,6 +230,7 @@ def pfb2_reference(hist, x, pfb, L, M, phi0, deficit, out_len, hist_len=0):
     return y
 
 
+@spanned("kernel.pfb2")
 def pfb2(hist, x, pfb, L, M, phi0, deficit, out_len, hist_len=0):
     """Rational L/M polyphase resampling of the 1-D float32 stream
     hist ‖ x (hist None: a fresh stream, zero history) with the (taps,

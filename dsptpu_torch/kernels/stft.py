@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils.profiling import spanned, table_cache
 
 __all__ = ["stft_pow", "stft_pow_reference", "stft_supported", "launches"]
 
@@ -54,8 +55,6 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
     ctypes.c_int] * 7 + [ctypes.c_void_p]
 # dsptpu_stft_blocks(N1, C, nframes, K, &nblk)
 _BLOCKS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-_tab_cache = {}
-_host_cache = {}
 
 
 def stft_supported(nfft, hop, dtype):
@@ -64,6 +63,7 @@ def stft_supported(nfft, hop, dtype):
             and dtype == torch.float32)
 
 
+@table_cache("stft", lambda nfft, device: (nfft, str(device)))
 def _tables(nfft, device):
     """float64 host tables cast to float32, on `device`, as (re, im)
     pairs: r1 (16, 2) roots W_N1^m for m < N1 (zero past N1), tw
@@ -72,29 +72,24 @@ def _tables(nfft, device):
     128 + 8 i + q (i < 16, q < 8); and the bin map idx (nfft,) of the
     plain version into rows k1 <= N1/2 of its (R, 128) four-step output
     (mirrored rows k1 > N1/2), host int64."""
-    key = (nfft, str(device))
-    hit = _tab_cache.get(key)
-    if hit is None:
-        N1 = nfft // 128
-        r1 = np.zeros(16, np.complex128)
-        r1[:N1] = np.exp(-2j * np.pi * np.arange(N1) / N1)
-        tw = np.exp(-2j * np.pi * np.outer(np.arange(N1), np.arange(128))
-                    / nfft)
-        r128 = np.exp(-2j * np.pi * np.concatenate([
-            np.arange(128), np.outer(np.arange(16), np.arange(8)).ravel()])
-            / 128)
+    N1 = nfft // 128
+    r1 = np.zeros(16, np.complex128)
+    r1[:N1] = np.exp(-2j * np.pi * np.arange(N1) / N1)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(N1), np.arange(128))
+                / nfft)
+    r128 = np.exp(-2j * np.pi * np.concatenate([
+        np.arange(128), np.outer(np.arange(16), np.arange(8)).ravel()])
+        / 128)
 
-        def pairs(z):
-            return torch.as_tensor(np.stack([z.real, z.imag], -1).astype(
-                np.float32), device=device)
+    def pairs(z):
+        return torch.as_tensor(np.stack([z.real, z.imag], -1).astype(
+            np.float32), device=device)
 
-        k = np.arange(nfft)
-        k1, k2 = k % N1, k // N1
-        idx = np.where(k1 <= N1 // 2, k1 * 128 + k2,
-                       (N1 - k1) * 128 + (127 - k2))
-        hit = (pairs(r1), pairs(tw), pairs(r128), idx)
-        _tab_cache[key] = hit
-    return hit
+    k = np.arange(nfft)
+    k1, k2 = k % N1, k // N1
+    idx = np.where(k1 <= N1 // 2, k1 * 128 + k2,
+                   (N1 - k1) * 128 + (127 - k2))
+    return pairs(r1), pairs(tw), pairs(r128), idx
 
 
 def _f32_on(a, device):
@@ -102,14 +97,13 @@ def _f32_on(a, device):
     by content (a pageable upload waits for the stream)."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.float32)
-    a = np.ascontiguousarray(a, dtype=np.float32)
-    key = (a.shape, a.tobytes(), str(device))
-    hit = _host_cache.get(key)
-    if hit is None:
-        if len(_host_cache) > 64:
-            _host_cache.clear()
-        hit = _host_cache[key] = torch.as_tensor(a, device=device)
-    return hit
+    return _upload(np.ascontiguousarray(a, dtype=np.float32), device)
+
+
+@table_cache("stft_host", lambda a, device: (a.shape, a.tobytes(),
+                                             str(device)), 64)
+def _upload(a, device):
+    return torch.as_tensor(a, device=device)
 
 
 def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
@@ -155,6 +149,7 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
     return (pw * scale).permute(2, 1, 0).contiguous()
 
 
+@spanned("kernel.stft")
 def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     """Power spectra of frames f < nframes of x (n, C) float32 starting
     at f*hop, windowed by win (nfft,) or by each window of a stack

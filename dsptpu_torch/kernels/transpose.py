@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils.profiling import spanned
 
 __all__ = ["transpose2d", "transpose2d_reference", "transpose_tall",
            "transpose_tall_reference", "tall_out_len", "spectro_permute",
@@ -72,6 +73,7 @@ def transpose2d_reference(x):
     return x.reshape(-1)[src]
 
 
+@spanned("kernel.transpose2d")
 def transpose2d(x):
     """x (M, N) float32 transposed, (N, M)."""
     if x.device.type == "cpu":
@@ -103,6 +105,7 @@ def transpose_tall_reference(x, TR=8192, pad_to=None):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+@spanned("kernel.transpose_tall")
 def transpose_tall(x, TR=8192, pad_to=None):
     """x (M, C) float32 -> (C, out_len), x.T followed by zeros up to
     out_len = tall_out_len(M, TR, pad_to)."""
@@ -135,6 +138,7 @@ def spectro_permute_reference(tile, l2):
     return tile.reshape(-1)[src].reshape(l2, N1, nb * TB, C)
 
 
+@spanned("kernel.spectro_permute")
 def spectro_permute(tile, l2):
     """tile (C, nb, N1, TB, 128) float32 -> (l2, N1, nb*TB, C), bins
     k2 < l2 (1 <= l2 <= 128) moved to the front and channels to the

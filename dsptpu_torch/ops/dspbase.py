@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..utils.device import as_tensor, no_tf32
 from ..utils.fftutil import fftintype
+from ..utils.profiling import spanned
 
 __all__ = ["filt", "conv", "conv_with_offset", "deconv", "xcorr",
            "optimal_os_nfft"]
@@ -124,6 +125,7 @@ def _fir_block_toeplitz(b, x):
 # filt
 # ---------------------------------------------------------------------------
 
+@spanned("filt")
 def filt(b, a, x=None, si=None, device=None):
     """Filter x along axis 0 with the IIR/FIR filter described by
     coefficient vectors b (numerator) and a (denominator).

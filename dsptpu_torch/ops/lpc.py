@@ -18,6 +18,7 @@ import torch
 
 from ..kernels.levinson import lev_supported, levinson as lev_kernel
 from ..utils.device import as_tensor
+from ..utils.profiling import span, spanned
 from .dspbase import xcorr
 
 __all__ = ["lpc", "arburg", "levinson", "LPCBurg", "LPCLevinson"]
@@ -139,6 +140,7 @@ def _biased_lags(x, p):
     return (x.conj() * win).mean(1)
 
 
+@spanned("lpc")
 def lpc(x, p, method="burg", device=None):
     """LPC coefficients and prediction error, without the implicit
     leading 1. method in {"burg", "levinson"} (or the marker classes)."""
@@ -152,10 +154,11 @@ def lpc(x, p, method="burg", device=None):
         return a[1:], err
     if method == "levinson":
         n = x.shape[0]
-        if x.ndim == 1:
-            R = xcorr(x, scaling="biased")[n - 1:]
-        else:
-            R = _biased_lags(x, p)
+        with span("lpc.lags"):
+            if x.ndim == 1:
+                R = xcorr(x, scaling="biased")[n - 1:]
+            else:
+                R = _biased_lags(x, p)
         a, err, _ = levinson(R, p)
         return a, err
     raise ValueError("method must be 'burg' or 'levinson'")

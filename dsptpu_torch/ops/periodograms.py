@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..utils.device import as_tensor
 from ..utils.fftutil import nextfastfft, fftintype
+from ..utils.profiling import spanned
 from . import windows as _windows
 
 __all__ = [
@@ -58,6 +59,7 @@ class Spectrogram:
     time: Any
 
 
+@spanned("power")
 def power(p):
     return p.power
 
@@ -344,6 +346,7 @@ class WelchConfig:
                            None if win is None else tuple(win.tolist()))
 
 
+@spanned("welch_pgram")
 def welch_pgram(s, n=None, noverlap=None, onesided=None, nfft=None, fs=1.0,
                 window=None, config=None, device=None):
     """Welch PSD estimate over overlapping windowed segments; trailing
@@ -384,6 +387,7 @@ def welch_pgram(s, n=None, noverlap=None, onesided=None, nfft=None, fs=1.0,
 # STFT / spectrogram
 # ---------------------------------------------------------------------------
 
+@spanned("stft")
 def stft(s, n=None, noverlap=None, psdonly=False, onesided=None, nfft=None,
          fs=1.0, window=None, device=None):
     """Short-time Fourier transform: (nbins, k, *chans) DFT coefficients

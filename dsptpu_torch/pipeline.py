@@ -5,6 +5,11 @@ dsptpu's __graft_entry__.entry; and the drivers of the other paths
     filt(b, x)  (127-tap FIR, K1) -> sosfilt(sos, y)  (SOS cascade, K2)
     -> welch_pgram + stft(psdonly=True)  (K3) -> power
 
+Each entry's forward runs inside span("entry") (utils.profiling), the
+root of its call's spans when tracing is on; filtfilt_lpc_entry's
+forward also puts its frames' copy in span("frames"). The ops and the
+kernel wrappers open their own spans below.
+
 `sharded_entry()` runs dsptpu's multi-chip chain (bench.py's
 weak-scaling pipeline, shard_fir -> shard_sosfilt -> shard_welch) on a
 DeviceMesh of every rank; `dryrun_multichip(n)` holds the sharded ops
@@ -44,6 +49,7 @@ from .ops.multitaper import (MTCoherenceConfig, MTConfig,
                              mt_spectrogram)
 from .ops.periodograms import power, stft, welch_pgram
 from .utils.device import check_full_f32, resolve_device
+from .utils.profiling import span
 
 __all__ = ["entry", "chain_params", "fftfilt_entry", "fftfilt_taps",
            "filtfilt_lpc_entry", "resample_entry", "RESAMPLE_RATES",
@@ -75,11 +81,12 @@ def entry(device="cuda", n=1_000_000, channels=64, order=8, cutoff=0.2,
 
     def forward(x):
         """x: (n, channels) -> (psd, stft_power), in x's dtype."""
-        y = filt(taps, x)
-        y = sosfilt(sos, y)
-        p = welch_pgram(y, nfft, nfft // 2, window=win)
-        s = stft(y, nfft, nfft // 2, window=win, psdonly=True)
-        return power(p), s
+        with span("entry"):
+            y = filt(taps, x)
+            y = sosfilt(sos, y)
+            p = welch_pgram(y, nfft, nfft // 2, window=win)
+            s = stft(y, nfft, nfft // 2, window=win, psdonly=True)
+            return power(p), s
 
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((n, channels)).astype(np.float32),
@@ -110,7 +117,8 @@ def fftfilt_entry(device="cuda", n=10_000_000, channels=16, taps=4096):
 
     def forward(x):
         """x: (n, channels) -> fftfilt(h, x), in x's dtype."""
-        return fftfilt(h, x)
+        with span("entry"):
+            return fftfilt(h, x)
 
     return forward, (_stream(dev, n, channels),)
 
@@ -130,12 +138,13 @@ def filtfilt_lpc_entry(device="cuda", n=1_000_000, channels=64, order=8,
 
     def forward(x):
         """x: (n, channels) -> (y, (a, err)), in x's dtype."""
-        y = filtfilt(f, x)
-        # one copy of the frames, as bench.py makes them (.T.copy()):
-        # the lag sums then read 4 MB contiguously, not a strided column
-        frames = x[: nfr * flen, 0].reshape(nfr, flen).T.contiguous()
-        # a range for profiles: the LPC stage's host and device time
-        with torch.profiler.record_function("lpc"):
+        with span("entry"):
+            y = filtfilt(f, x)
+            # one copy of the frames, as bench.py makes them (.T.copy()):
+            # the lag sums then read 4 MB contiguously, not a strided
+            # column
+            with span("frames"):
+                frames = x[: nfr * flen, 0].reshape(nfr, flen).T.contiguous()
             return y, lpc(frames, lpc_order, method="levinson")
 
     return forward, (_stream(dev, n, channels),)
@@ -163,11 +172,12 @@ def resample_entry(device="cuda", n=10_000_000, arb_n=2_500_000):
 
     def forward(x):
         """x: (n,) -> one output per rate, in x's dtype."""
-        out = []
-        for f, xs in zip(fs, (x, x, x[:arb_n])):
-            f.reset()
-            out.append(f.filt(xs))
-        return tuple(out)
+        with span("entry"):
+            out = []
+            for f, xs in zip(fs, (x, x, x[:arb_n])):
+                f.reset()
+                out.append(f.filt(xs))
+            return tuple(out)
 
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
@@ -202,8 +212,9 @@ def multitaper_entry(device="cuda", n=1_000_000, channels=64, coh_n=16384):
     def forward(x):
         """x: (n, channels) -> (spectrogram power, coherence), in x's
         dtype."""
-        p = mt_spectrogram(x, config=spec_cfg).power
-        return p, mt_coherence(x[:coh_n].T, config=coh_cfg).coherence
+        with span("entry"):
+            p = mt_spectrogram(x, config=spec_cfg).power
+            return p, mt_coherence(x[:coh_n].T, config=coh_cfg).coherence
 
     return forward, (_stream(dev, n, channels),)
 
@@ -236,9 +247,10 @@ def sharded_entry(mesh=None, device="cuda", n=1_000_000, channels=64):
 
     def forward(x):
         """x: (n, channels) -> psd (nfft//2+1, channels), in x's dtype."""
-        y = shard_fir(taps, x, mesh)
-        y = shard_sosfilt(sos, 1.0, y, mesh)
-        return shard_welch(y, nfft, nfft // 2, win, mesh)[0]
+        with span("entry"):
+            y = shard_fir(taps, x, mesh)
+            y = shard_sosfilt(sos, 1.0, y, mesh)
+            return shard_welch(y, nfft, nfft // 2, win, mesh)[0]
 
     rng = np.random.default_rng(0)
     x = shard_time(rng.standard_normal((n, channels)).astype(np.float32),

@@ -2,21 +2,41 @@
 on torch.profiler and CUDA events).
 
 `trace` writes a torch.profiler trace that Perfetto (or
-chrome://tracing) opens; `annotate` names a region in it; `Roofline`
-turns a time into shares of the card's peaks; `measure` times a call on
-the card with CUDA events; `device_by_kernel` sums a call's device time
-by kernel from a torch.profiler window.
+chrome://tracing) opens; `span` names a region of the program in it and
+in the span ring that `self_times` reads; `count` and `counters` are
+the program's always-on counters, `table_cache` a keyed cache of tables
+that counts its lookups; `Roofline` turns a time into shares of the card's
+peaks; `measure` times a call on the card with CUDA events;
+`device_by_kernel` sums a call's device time by kernel from a
+torch.profiler window.
+
+Spans. Tracing is on while a torch profiler records, or after
+`tracing(True)`. With tracing off, `span(name)` returns one shared
+no-op context (a flag check and no allocation) and `spanned` calls the
+function straight through. With tracing on, each span appends one
+record, (call id, parent index, name, start ns, end ns) by
+`time.perf_counter_ns()`, to a ring of the last RING_RECORDS spans, and
+under a profiler also enters a `_RecordFunctionFast` range, on the
+profiler's clock beside the device's records. A span opened with no
+span open is a root: it opens a new call id, which every span inside it
+shares. The ring, the open spans and the counters are module state of
+one thread; `reset` (called by `kernels.reset_launches`) empties the
+ring and the counters.
 """
 
 import contextlib
+import functools
 import math
 import os
 import re
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "annotate", "Roofline", "measure", "device_by_kernel"]
+__all__ = ["trace", "span", "spanned", "tracing", "spans", "self_times",
+           "count", "counters", "reset", "table_cache", "Roofline", "measure",
+           "device_by_kernel"]
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3
 # bytes/s and float32 FLOP/s on the CUDA cores, outside the tensor cores.
@@ -29,8 +49,8 @@ H100_F32_FLOPS = 67e12
 def trace(logdir):
     """Collect a torch.profiler trace of the block (CPU activity, and the
     card's where CUDA is available) into `logdir` as a Chrome trace JSON
-    file, trace_<pid>_<ns>.json, that Perfetto opens. Yields the
-    profiler."""
+    file, trace_<pid>_<ns>.json, that Perfetto opens; the program's
+    spans show in it as ranges. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(logdir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
@@ -42,9 +62,165 @@ def trace(logdir):
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name):
-    """Named region that shows up in profiler traces."""
-    return torch.profiler.record_function(name)
+# spans: a ring of the last RING_RECORDS records, [call id, parent index
+# (-1 for a root), name, start ns, end ns (0 while open)]; a record's index
+# counts the spans opened since import
+RING_RECORDS = 1 << 17
+_ring = [None] * RING_RECORDS
+_next = 0                   # index of the next record
+_first = 0                  # index of the first record since the last reset
+_open = []                  # (index, call id) of open spans, innermost last
+_calls = 0                  # call ids given out
+_tracing = False
+_counts = {}
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+class _Off:
+    """The shared no-op span of tracing off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "rf")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        global _next, _calls
+        if _open:
+            parent, call = _open[-1]
+        else:
+            parent, call = -1, _calls
+            _calls += 1
+        self.rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = _RecordFunctionFast(self.name)
+            self.rf.__enter__()
+        self.rec = [call, parent, self.name, time.perf_counter_ns(), 0]
+        _ring[_next % RING_RECORDS] = self.rec
+        _open.append((_next, call))
+        _next += 1
+        return None
+
+    def __exit__(self, *exc):
+        self.rec[4] = time.perf_counter_ns()
+        _open.pop()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
+
+
+def span(name):
+    """Context: a named region of the program (see the module's
+    docstring); a shared no-op while tracing is off."""
+    if _tracing or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def spanned(name):
+    """Decorator: each call of the function inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _tracing or _autograd_profiler._is_profiler_enabled:
+                with _Span(name):
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def tracing(on):
+    """Record spans (on=True) whether or not a profiler records; with
+    False, only while one does."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def spans():
+    """The ring's records since the last reset, oldest first, as tuples
+    (index, call id, parent index, name, start ns, end ns); the end is 0
+    while the span is open."""
+    lo = max(_first, _next - RING_RECORDS)
+    return [(i, *_ring[i % RING_RECORDS]) for i in range(lo, _next)]
+
+
+def self_times(calls):
+    """{span name: mean self seconds a call} over the first `calls` root
+    spans of the ring that have closed, or None where it holds fewer. A
+    span's self time is its duration less its child spans' durations;
+    the self times of a call sum to its root's duration."""
+    recs = {r[0]: r for r in spans()}
+    roots = [r[1] for r in recs.values() if r[2] < 0 and r[5]][:calls]
+    if len(roots) < calls or calls < 1:
+        return None
+    keep = set(roots)
+    ns = {}
+    for i, call, parent, name, start, end in recs.values():
+        if call in keep:
+            ns[name] = ns.get(name, 0) + end - start
+            if parent >= 0:
+                pname = recs[parent][3]
+                ns[pname] = ns.get(pname, 0) - (end - start)
+    return {k: v / 1e9 / calls for k, v in ns.items()}
+
+
+def count(name, k=1):
+    """Add k to the counter `name` (always on)."""
+    _counts[name] = _counts.get(name, 0) + k
+
+
+def counters():
+    """{counter name: count} since the last reset."""
+    return dict(_counts)
+
+
+def reset():
+    """Empty the span ring and the counters."""
+    global _first
+    _first = _next
+    _counts.clear()
+
+
+def table_cache(name, key, bound=None):
+    """Decorator: a keyed cache of the function's results (tables built
+    on the host), where key(*args, **kwargs) is a call's key; each
+    lookup counts `table.<name>.hit` or `table.<name>.miss`, and a miss
+    that finds more than `bound` entries (None: no bound) clears the
+    cache first. The cache is the function's `entries` dict."""
+    hit, miss = f"table.{name}.hit", f"table.{name}.miss"
+
+    def wrap(build):
+        entries = {}
+
+        @functools.wraps(build)
+        def get(*args, **kwargs):
+            k = key(*args, **kwargs)
+            v = entries.get(k)
+            if v is not None:
+                count(hit)
+                return v
+            count(miss)
+            v = build(*args, **kwargs)
+            if bound is not None and len(entries) > bound:
+                entries.clear()
+            entries[k] = v
+            return v
+        get.entries = entries
+        return get
+    return wrap
 
 
 class Roofline:
