@@ -11,7 +11,8 @@ to 0 just before it and read just after:
 
   * the main path, dsptpu_torch.entry(device="cuda"): x of 1,000,000 x 64
     float32, 127-tap FIR (K1) -> 8th-order Butterworth SOS cascade (K2)
-    -> Welch + STFT power (K3), nfft 1024, hop 512;
+    -> Welch + STFT power (K3's fused mode, one launch for both), nfft
+    1024, hop 512;
   * path A, fftfilt_entry(): fftfilt of x (10,000,000 x 16) float32 with
     a 4096-tap FIR by overlap-save blocks of 16384 points (K4);
   * path B, filtfilt_lpc_entry(): zero-phase Butterworth(8) filtfilt of
@@ -181,6 +182,23 @@ def exact(name, got, want, what):
         raise AssertionError(f"{name} {what}: differs from its reference")
 
 
+def fused_cases(x, win, nfft, hop, k, sf, ss, what):
+    """K3's fused call held to its plain version bin by bin, and to the
+    per-frame and summed calls bit for bit."""
+    from dsptpu_torch.kernels import stft
+    frames, summed = stft.stft_pow_fused(x, win, nfft, hop, k, sf, ss)
+    want_f, want_s = stft.stft_pow_fused_reference(x, win, nfft, hop, k, sf,
+                                                   ss)
+    err = compare("stft", frames, want_f, f"fused frames, {what}",
+                  by_bin=True)
+    compare("stft", summed, want_s, f"fused sum, {what}", by_bin=True)
+    exact("stft", frames, stft.stft_pow(x, win, nfft, hop, k, False, sf),
+          f"fused frames vs per-frame call, {what}")
+    exact("stft", summed, stft.stft_pow(x, win, nfft, hop, k, True, ss),
+          f"fused sum vs summed call, {what}")
+    return err
+
+
 def small_cases(dev):
     """Every kernel against its plain version at small ragged shapes."""
     import torch
@@ -293,6 +311,11 @@ def small_cases(dev):
                     stft.stft_pow_reference(x, win, nfft, hop, k, acc, sc),
                     f"edge K={K} {'sum' if acc else 'frames'} n={n} C={C} "
                     f"nfft={nfft} hop={hop} nbins={nbins}", by_bin=True)
+        if K == 1:
+            fused_cases(x, win[0], nfft, hop, k, sc,
+                        t(rng.uniform(0.5, 2.0, nbins)),
+                        f"edge n={n} C={C} nfft={nfft} hop={hop} "
+                        f"nbins={nbins}")
     # the Welch sum repeats bit for bit (fixed partition, no atomics)
     x = t(rng.standard_normal((200_000, 64)))
     win = t(np.hanning(1024))
@@ -534,6 +557,7 @@ K2_STAGES = ("chunk_reduce_kernel", "carry_kernel",
              "chunk_scan_sos_output_kernel")
 DEVICE_KERNELS = {
     "fir": ("fir_kernel",), "stft": ("stft_kernel",),
+    "stft_fused": ("stft_fused_kernel",),
     "biir": K2_STAGES, "biir_reverse": K2_STAGES,
     "osconv": ("osconv_kernel",), "levinson": ("levinson_kernel",),
     "pfb2": ("pfb2_kernel",), "arbd": ("arbd_kernel",)}
@@ -1784,16 +1808,42 @@ def main():
             f"{parts[mode]['library_ms']:.4f} ms, bound {bms:.4f} ms "
             f"({by})")
         del fr
-    tot = {key: sum(v[key] for v in parts.values())
-           for key in ("ms", "plain_ms", "library_ms", "nbytes", "flops")}
+    # the main path's call: one fused launch for both outputs, each frame
+    # transformed once
+    w2 = float(np.sum(win_np.astype(np.float64) ** 2))
+    sf = torch.as_tensor(_psd_weights(nfft, w2, True), device=dev)
+    ssum = torch.as_tensor(_psd_weights(nfft, k * w2, True), device=dev)
+    frames, summed = stft.stft_pow_fused(y2, win, nfft, hop, k, sf, ssum)
+    want_f, want_s = stft.stft_pow_fused_reference(y2, win, nfft, hop, k,
+                                                   sf, ssum)
+    errs.append(compare("stft", frames, want_f, "main path (fused frames)"))
+    errs.append(compare("stft", summed, want_s, "main path (fused sum)"))
+    del want_f, want_s
+    exact("stft", frames, stft.stft_pow(y2, win, nfft, hop, k, False, sf),
+          "main path, fused frames vs per-frame call")
+    exact("stft", summed, stft.stft_pow(y2, win, nfft, hop, k, True, ssum),
+          "main path, fused sum vs summed call")
+    del frames, summed
+    fused_cases(x, win, nfft, hop, k, sf, ssum, "main-path shapes, white x")
+    fr = y2.T.unfold(1, nfft, hop)
+
+    def lib_fused():
+        pw = torch.fft.rfft(fr * win, dim=-1).abs().square()
+        return pw, pw.sum(1)
     rows.append(dict(
-        name="stft", route="cuda", source="dsptpu_torch/csrc/stft.cu",
+        name="stft_fused", route="cuda", source="dsptpu_torch/csrc/stft.cu",
         replaces="dsptpu/kernels/stft.py:295", max_abs_err=max(errs),
-        ms=tot["ms"], plain_ms=tot["plain_ms"],
-        library_ms=tot["library_ms"], bound=bound(tot["nbytes"],
-                                                  tot["flops"])))
+        ms=time_ms(lambda: stft.stft_pow_fused(y2, win, nfft, hop, k, sf,
+                                               ssum)),
+        plain_ms=time_ms(lambda: stft.stft_pow_fused_reference(
+            y2, win, nfft, hop, k, sf, ssum)),
+        library_ms=time_ms(lib_fused),
+        bound=bound(n * C * 4 + nfft * 4 + nbins * C * 4 * (k + 1),
+                    k * C * flops_frame)))
     report(rows[-1])
-    del y1, y2
+    log(f"  stft the two unfused calls: kernel "
+        f"{sum(v['ms'] for v in parts.values()):.4f} ms")
+    del fr, y1, y2
 
     # 5. the main path, full width, through the entry point
     kernels.reset_launches()
@@ -1804,7 +1854,8 @@ def main():
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.launch_counts()
     log(f"main path: launches {counts}, first call {first_ms:.1f} ms")
-    if counts["fir"] < 1 or counts["biir"] < 1 or counts["stft"] < 2:
+    if (counts["fir"] < 1 or counts["biir"] < 1 or counts["stft_fused"] < 1
+            or counts["stft"]):
         raise AssertionError(f"main path missed a kernel: {counts}")
     if psd.shape != (nbins, C) or spow.shape != (nbins, k, C):
         raise AssertionError(f"shapes {psd.shape} {spow.shape}")

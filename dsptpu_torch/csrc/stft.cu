@@ -13,7 +13,13 @@
 //   * summed:      part[blk][k][c] = sum of P_f over the block's frames,
 //                  then a second pass out[k][c] = scale[k] sum_blk part
 //                  (a fixed order, no atomics: results repeat from run
-//                  to run on the same card).
+//                  to run on the same card), or
+//   * fused (K = 1): both of one transform of each frame, per frame with
+//                  one scale and summed with another (the chain's STFT
+//                  power and Welch PSD of the same frames). Its own
+//                  instance, stft_fused_kernel, so that the other two
+//                  compile as they would alone; the same frame blocks as
+//                  the summed mode, so the sums repeat its values.
 //
 // Design (Hopper, CUDA cores, float32 throughout):
 //   * Two real channels per complex transform: z = w (x_c + i x_{c+1}),
@@ -57,9 +63,9 @@
 //     FFT.  The TPU kernel used its matrix unit because the TPU's vector
 //     unit is weak; an H100's CUDA cores give 67 TFLOP/s in float32.
 //
-// Bound on an H100: the bytes of reading the signal and (per frame)
-// writing nbins floats per frame and channel, at 3.35 TB/s; a real FFT
-// with the window and |X|^2 (~2.5 nfft log2 nfft flops per frame and
+// Bound on an H100: the bytes of reading the signal and (per frame and
+// fused) writing nbins floats per frame and channel, at 3.35 TB/s; a real
+// FFT with the window and |X|^2 (~2.5 nfft log2 nfft flops per frame and
 // window) at 67 TFLOP/s bounds the K-window stack.
 
 #include <cuda_runtime.h>
@@ -258,6 +264,25 @@ __device__ __forceinline__ void load_rows(
     }
 }
 
+// Write bin k of channels c0 and c0 + 1 (p0, p1; c0 < C) at out row `row`
+// of C floats, times scale[k] if scale.
+__device__ __forceinline__ void store_bin(
+        float* __restrict__ out, const float* __restrict__ scale,
+        long long row, int k, int c0, int C, float p0, float p1) {
+    const float s = scale ? scale[k] : 1.f;
+    p0 *= s;
+    p1 *= s;
+    float* o = out + row * C + c0;
+    if (c0 + 1 >= C) {
+        o[0] = p0;
+    } else if ((C & 1) == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(p0, p1);
+    } else {
+        o[0] = p0;
+        o[1] = p1;
+    }
+}
+
 // Write one thread's 16 bins x 2 channels (acc as in stft_kernel) at the
 // out rows k * rowmul + rowadd of C floats, times scale[k] if scale.
 template <int N1>
@@ -273,32 +298,26 @@ __device__ __forceinline__ void store_bins(
             const int k = h == 0 ? a1 + N1 * (aa + 16 * kb)
                                  : b1 + N1 * (ba + 16 * kb);
             if (k >= nbins) continue;
-            const float s = scale ? scale[k] : 1.f;
-            const float p0 = acc[8 * h + kb] * s;
-            const float p1 = acc[16 + 8 * h + kb] * s;
-            float* o = out + ((long long)k * rowmul + rowadd) * C + c0;
-            if (c0 + 1 >= C) {
-                o[0] = p0;
-            } else if ((C & 1) == 0) {
-                *reinterpret_cast<float2*>(o) = make_float2(p0, p1);
-            } else {
-                o[0] = p0;
-                o[1] = p1;
-            }
+            store_bin(out, scale, (long long)k * rowmul + rowadd, k, c0, C,
+                      acc[8 * h + kb], acc[16 + 8 * h + kb]);
         }
     }
 }
 
 // Block (blockIdx.x, blockIdx.y): frames [blockIdx.x fpb, + fpb) of the
-// channel pairs [blockIdx.y G, + G); blockDim.x = 8 N1 G threads.
-template <int N1>
-__global__ void __launch_bounds__(kMaxThreads, 512 / kMaxThreads)
-stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
-            const float2* __restrict__ r1g, const float2* __restrict__ twg,
-            const float2* __restrict__ r128g,
-            const float* __restrict__ scale, float* __restrict__ out,
-            long long n, int C, int hop, int nframes, int nbins, int G,
-            int fpb, int K, int stage_win, int accumulate, int vec) {
+// channel pairs [blockIdx.y G, + G); blockDim.x = 8 N1 G threads. The
+// body of both kernels: kFused false, the per-frame or (accumulate)
+// summed mode into out; kFused true (K = 1), each frame's power times
+// scale into frames (nbins, nframes, C) as it leaves pass C, and its sum
+// over the block's frames, unscaled, into out as the summed mode's.
+template <int N1, bool kFused>
+__device__ __forceinline__ void stft_body(
+        const float* __restrict__ x, const float* __restrict__ win,
+        const float2* __restrict__ r1g, const float2* __restrict__ twg,
+        const float2* __restrict__ r128g, const float* __restrict__ scale,
+        float* __restrict__ out, float* __restrict__ frames, long long n,
+        int C, int hop, int nframes, int nbins, int G, int fpb, int K,
+        int stage_win, int accumulate, int vec) {
     constexpr int nfft = N1 * 128;
     extern __shared__ float4 smem4[];
     float* raw = reinterpret_cast<float*>(smem4);        // nfft x 2G ring
@@ -352,7 +371,7 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
     for (int f = f0; f < f1; ++f) {
         const long long t0 = (long long)f * hop;
         const int base = (int)(t0 % nfft);               // a multiple of 128
-        if (!accumulate) {
+        if (!kFused && !accumulate) {
 #pragma unroll
             for (int i = 0; i < 32; ++i) acc[i] = 0.f;
         }
@@ -408,7 +427,32 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
                 }
                 fft_pow2<8>(A, r128);
                 fft_pow2<8>(B, r128);
-                if (r == 0) {
+                if constexpr (kFused) {
+                    // a bin's power goes to its frame's row and into the
+                    // sum: only the sums live on past pass C
+#pragma unroll
+                    for (int kb = 0; kb < 8; ++kb) {
+                        const float2 ma = r == 0 ? A[(8 - kb) & 7] : B[7 - kb];
+                        const float2 mb = r == 0 ? B[7 - kb] : A[7 - kb];
+                        float pa0 = 0.f, pa1 = 0.f, pb0 = 0.f, pb1 = 0.f;
+                        separate(A[kb], ma, pa0, pa1);
+                        separate(B[kb], mb, pb0, pb1);
+                        const int ka = a1 + N1 * (aa + 16 * kb);
+                        const int kB = b1 + N1 * (ba + 16 * kb);
+                        if (c0 < C && ka < nbins)
+                            store_bin(frames, scale,
+                                      (long long)ka * nframes + f, ka, c0, C,
+                                      pa0, pa1);
+                        if (c0 < C && kB < nbins)
+                            store_bin(frames, scale,
+                                      (long long)kB * nframes + f, kB, c0, C,
+                                      pb0, pb1);
+                        acc[kb] += pa0;
+                        acc[16 + kb] += pa1;
+                        acc[8 + kb] += pb0;
+                        acc[24 + kb] += pb1;
+                    }
+                } else if (r == 0) {
 #pragma unroll
                     for (int kb = 0; kb < 8; ++kb) {
                         separate(A[kb], A[(8 - kb) & 7], acc[kb], acc[16 + kb]);
@@ -425,7 +469,7 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
             // the next window's pass A overwrites Z
             if (m + 1 < K) __syncthreads();
         }
-        if (!accumulate)
+        if (!kFused && !accumulate)
             store_bins<N1>(acc, out, scale, nframes, f, a1, aa, b1, ba, c0,
                            C, nbins);
         // the next frame's rows have landed, and this frame's pass C is
@@ -435,9 +479,38 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
             __syncthreads();
         }
     }
-    if (accumulate)
+    if (kFused || accumulate)
         store_bins<N1>(acc, out, nullptr, 1, (long long)blockIdx.x * nbins,
                        a1, aa, b1, ba, c0, C, nbins);
+}
+
+template <int N1>
+__global__ void __launch_bounds__(kMaxThreads, 512 / kMaxThreads)
+stft_kernel(const float* __restrict__ x, const float* __restrict__ win,
+            const float2* __restrict__ r1g, const float2* __restrict__ twg,
+            const float2* __restrict__ r128g,
+            const float* __restrict__ scale, float* __restrict__ out,
+            long long n, int C, int hop, int nframes, int nbins, int G,
+            int fpb, int K, int stage_win, int accumulate, int vec) {
+    stft_body<N1, false>(x, win, r1g, twg, r128g, scale, out, nullptr, n, C,
+                         hop, nframes, nbins, G, fpb, K, stage_win,
+                         accumulate, vec);
+}
+
+// The fused mode: part as the summed mode's, frames (nbins, nframes, C)
+// times scale.
+template <int N1>
+__global__ void __launch_bounds__(kMaxThreads, 512 / kMaxThreads)
+stft_fused_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                  const float2* __restrict__ r1g,
+                  const float2* __restrict__ twg,
+                  const float2* __restrict__ r128g,
+                  const float* __restrict__ scale, float* __restrict__ part,
+                  float* __restrict__ frames, long long n, int C, int hop,
+                  int nframes, int nbins, int G, int fpb, int stage_win,
+                  int vec) {
+    stft_body<N1, true>(x, win, r1g, twg, r128g, scale, part, frames, n, C,
+                        hop, nframes, nbins, G, fpb, 1, stage_win, 1, vec);
 }
 
 // out[k][c] = scale[k] * sum_{blk < nblk} part[blk][k][c], in blk order.
@@ -457,39 +530,55 @@ using KernelFn = void (*)(const float*, const float*, const float2*,
                           const float2*, const float2*, const float*, float*,
                           long long, int, int, int, int, int, int, int, int,
                           int, int);
+using FusedFn = void (*)(const float*, const float*, const float2*,
+                         const float2*, const float2*, const float*, float*,
+                         float*, long long, int, int, int, int, int, int, int,
+                         int);
 
-KernelFn kernel_for(int N1) {
+struct Kernels {
+    KernelFn pow;
+    FusedFn fused;
+};
+
+template <int N1>
+constexpr Kernels kernels_of() {
+    return {stft_kernel<N1>, stft_fused_kernel<N1>};
+}
+
+Kernels kernels_for(int N1) {
     switch (N1) {
-        case 2: return stft_kernel<2>;
-        case 3: return stft_kernel<3>;
-        case 4: return stft_kernel<4>;
-        case 5: return stft_kernel<5>;
-        case 6: return stft_kernel<6>;
-        case 7: return stft_kernel<7>;
-        case 8: return stft_kernel<8>;
-        case 9: return stft_kernel<9>;
-        case 10: return stft_kernel<10>;
-        case 11: return stft_kernel<11>;
-        case 12: return stft_kernel<12>;
-        case 13: return stft_kernel<13>;
-        case 14: return stft_kernel<14>;
-        case 15: return stft_kernel<15>;
-        case 16: return stft_kernel<16>;
-        default: return nullptr;
+        case 2: return kernels_of<2>();
+        case 3: return kernels_of<3>();
+        case 4: return kernels_of<4>();
+        case 5: return kernels_of<5>();
+        case 6: return kernels_of<6>();
+        case 7: return kernels_of<7>();
+        case 8: return kernels_of<8>();
+        case 9: return kernels_of<9>();
+        case 10: return kernels_of<10>();
+        case 11: return kernels_of<11>();
+        case 12: return kernels_of<12>();
+        case 13: return kernels_of<13>();
+        case 14: return kernels_of<14>();
+        case 15: return kernels_of<15>();
+        case 16: return kernels_of<16>();
+        default: return {nullptr, nullptr};
     }
 }
 
 // The launch geometry of one call: G pairs and 8 N1 G threads per block,
-// nfb x groups blocks of fpb frames, windows staged or not.
+// nfb x groups blocks of fpb frames, windows staged or not. The fused
+// kernel takes the per-frame and summed kernel's geometry (its occupancy
+// sets nfb), so that its partial sums are the summed mode's.
 struct Plan {
-    KernelFn kern;
+    Kernels kern;
     int G, threads, groups, fpb, nfb, stage;
     size_t smem;
 };
 
-int plan_launch(int N1, int C, int nframes, int K, Plan* p) {
-    p->kern = kernel_for(N1);
-    if (p->kern == nullptr || nframes < 1 || K < 1 || C < 1)
+int plan_launch(int N1, int C, int nframes, int K, bool fused, Plan* p) {
+    p->kern = kernels_for(N1);
+    if (p->kern.pow == nullptr || nframes < 1 || K < 1 || C < 1)
         return cudaErrorInvalidValue;
     const int nfft = N1 * 128;
     const int pairs = (C + 1) / 2;
@@ -501,13 +590,18 @@ int plan_launch(int N1, int C, int nframes, int K, Plan* p) {
               sizeof(float2) * ((size_t)N1 * kRow * p->G + nfft + 256 + 16) +
               (p->stage ? sizeof(float) * (size_t)K * nfft : 0);
     cudaError_t err = cudaFuncSetAttribute(
-        p->kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+        p->kern.pow, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)p->smem);
+    if (err == cudaSuccess && fused)
+        err = cudaFuncSetAttribute(
+            p->kern.fused, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)p->smem);
     if (err != cudaSuccess) return err;
     int dev = 0, sms = 0, occ = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, p->kern,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, p->kern.pow,
                                                         p->threads, p->smem);
     if (err != cudaSuccess) return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
@@ -518,6 +612,21 @@ int plan_launch(int N1, int C, int nframes, int K, Plan* p) {
     return cudaSuccess;
 }
 
+// out[k][c] = scale[k] * sum_blk part[blk][k][c] for a summed or fused
+// launch of plan p.
+void launch_reduce(const Plan& p, const void* part, const void* scale,
+                   void* out, int nbins, int C, cudaStream_t st) {
+    const long long total = (long long)nbins * C;
+    reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(part), static_cast<const float*>(scale),
+        static_cast<float*>(out), p.nfb, nbins, C);
+}
+
+int vec_loads(const Plan& p, const void* x, int C) {
+    return (C % 4 == 0) && (p.G % 2 == 0) &&
+           (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -526,11 +635,11 @@ const char* dsptpu_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Number of frame blocks (partial sums) a summed call of these shapes
-// launches: the rows of its `part` scratch.
+// Number of frame blocks (partial sums) a summed or fused call of these
+// shapes launches: the rows of its `part` scratch.
 int dsptpu_stft_blocks(int N1, int C, int nframes, int K, int* nblk) {
     Plan p;
-    const int err = plan_launch(N1, C, nframes, K, &p);
+    const int err = plan_launch(N1, C, nframes, K, false, &p);
     *nblk = err == cudaSuccess ? p.nfb : 0;
     return err;
 }
@@ -547,24 +656,43 @@ int dsptpu_stft_pow(const void* x, const void* win, const void* r1,
                     int hop, int nframes, int nbins, int accumulate, int K,
                     void* stream) {
     Plan p;
-    int err = plan_launch(N1, C, nframes, K, &p);
+    int err = plan_launch(N1, C, nframes, K, false, &p);
     if (err != cudaSuccess) return err;
     auto st = static_cast<cudaStream_t>(stream);
-    const int vec = (C % 4 == 0) && (p.G % 2 == 0) &&
-                    (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     const dim3 grid(p.nfb, p.groups);
-    p.kern<<<grid, p.threads, p.smem, st>>>(
+    p.kern.pow<<<grid, p.threads, p.smem, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(win),
         static_cast<const float2*>(r1), static_cast<const float2*>(tw),
         static_cast<const float2*>(r128), static_cast<const float*>(scale),
         static_cast<float*>(accumulate ? part : out), n, C, hop, nframes,
-        nbins, p.G, p.fpb, K, p.stage, accumulate, vec);
-    if (accumulate) {
-        const long long total = (long long)nbins * C;
-        reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-            static_cast<const float*>(part), static_cast<const float*>(scale),
-            static_cast<float*>(out), p.nfb, nbins, C);
-    }
+        nbins, p.G, p.fpb, K, p.stage, accumulate, vec_loads(p, x, C));
+    if (accumulate) launch_reduce(p, part, scale, out, nbins, C, st);
+    return cudaGetLastError();
+}
+
+// The fused mode, one window (nfft,) and the arguments of
+// dsptpu_stft_pow: out_frames (nbins, nframes, C) = scale_frame[k] P_f[k]
+// and out_sum (nbins, C) = scale_sum[k] sum_f P_f[k] through part
+// (nblk, nbins, C), nblk from dsptpu_stft_blocks(N1, C, nframes, 1).
+int dsptpu_stft_pow_fused(const void* x, const void* win, const void* r1,
+                          const void* tw, const void* r128,
+                          const void* scale_frame, const void* scale_sum,
+                          void* part, void* out_frames, void* out_sum,
+                          long long n, int C, int N1, int hop, int nframes,
+                          int nbins, void* stream) {
+    Plan p;
+    int err = plan_launch(N1, C, nframes, 1, true, &p);
+    if (err != cudaSuccess) return err;
+    auto st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(p.nfb, p.groups);
+    p.kern.fused<<<grid, p.threads, p.smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(win),
+        static_cast<const float2*>(r1), static_cast<const float2*>(tw),
+        static_cast<const float2*>(r128),
+        static_cast<const float*>(scale_frame), static_cast<float*>(part),
+        static_cast<float*>(out_frames), n, C, hop, nframes, nbins, p.G,
+        p.fpb, p.stage, vec_loads(p, x, C));
+    launch_reduce(p, part, scale_sum, out_sum, nbins, C, st);
     return cudaGetLastError();
 }
 

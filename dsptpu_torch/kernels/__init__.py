@@ -25,7 +25,8 @@ def reset_launches():
 
 def launch_counts():
     """Launches per kernel since the last reset; "biir_reverse" counts
-    the reverse passes among biir's."""
+    the reverse passes among biir's, "stft_fused" K3's fused launches
+    (not among stft's)."""
     counts = {}
     for mod in KERNELS.values():
         counts.update(mod.launches)

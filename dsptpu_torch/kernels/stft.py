@@ -11,6 +11,11 @@ and |X|^2, then either writes the scaled bins in order per frame,
 through per-block partial sums and a second pass: no atomics, so results
 repeat from run to run.
 
+`stft_pow_fused` takes one window and returns both of one transform of
+each frame: the scaled power per frame and, with other scales, its sum
+over the frames (the chain's STFT power and Welch PSD), in one launch of
+the kernel's fused instance.
+
 The window may be one (nfft,) window or a stack (K, nfft) (multitaper:
 fold a per-taper weight into its window as w_m / sqrt(r_m)); |X|^2 is
 summed over the K windows in order and the bin scale applied once at
@@ -31,10 +36,11 @@ also writing nbins floats per frame and channel); a real FFT with the
 window and |X|^2 (~2.5 nfft log2 nfft flops per frame and window) at
 67 TFLOP/s bounds the K-window stack.
 
-`stft_pow` launches the kernel for a CUDA tensor and runs
-`stft_pow_reference`, the plain PyTorch version (the four-step DFT as
-tensor products), for a CPU tensor. `launches["stft"]` counts kernel
-launches.
+`stft_pow` and `stft_pow_fused` launch the kernel for a CUDA tensor
+and run their plain PyTorch versions, `stft_pow_reference` and
+`stft_pow_fused_reference` (the four-step DFT as tensor products), for
+a CPU tensor. `launches["stft"]` and `launches["stft_fused"]` count
+kernel launches.
 """
 
 import ctypes
@@ -45,14 +51,20 @@ import torch
 from . import _build
 from ..utils.profiling import spanned, table_cache
 
-__all__ = ["stft_pow", "stft_pow_reference", "stft_supported", "launches"]
+__all__ = ["stft_pow", "stft_pow_reference", "stft_pow_fused",
+           "stft_pow_fused_reference", "stft_supported", "launches"]
 
-launches = {"stft": 0}
+launches = {"stft": 0, "stft_fused": 0}
 
 # dsptpu_stft_pow(x, win, r1, tw, r128, scale, part, out, n, C, N1, hop,
 #                 nframes, nbins, accumulate, K, stream)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
     ctypes.c_int] * 7 + [ctypes.c_void_p]
+# dsptpu_stft_pow_fused(x, win, r1, tw, r128, scale_frame, scale_sum, part,
+#                       out_frames, out_sum, n, C, N1, hop, nframes, nbins,
+#                       stream)
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p]
 # dsptpu_stft_blocks(N1, C, nframes, K, &nblk)
 _BLOCKS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 
@@ -106,16 +118,14 @@ def _upload(a, device):
     return torch.as_tensor(a, device=device)
 
 
-def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
-    """Plain PyTorch version: the same four-step DFT with float32
-    tables, as tensor products, one window of the stack at a time (the
-    memory of one window) and |X|^2 summed over the windows in order.
-    x (n, C) float32, win (nfft,) or (K, nfft), scale (nbins,) on x's
-    device."""
+def _frame_powers(x, win, nfft, hop, nframes, nbins):
+    """|X|^2 of bins < nbins of each frame, summed over the windows:
+    (C, nframes, nbins), by the four-step DFT with float32 tables as
+    tensor products, one window of the stack at a time (the memory of
+    one window)."""
     n, C = x.shape
     N1 = nfft // 128
     R = N1 // 2 + 1
-    nbins = scale.shape[0]
     need = (nframes - 1) * hop + nfft
     xp = torch.zeros((max(need, n), C), dtype=x.dtype, device=x.device)
     xp[:n] = x
@@ -144,9 +154,44 @@ def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
         p = (xre * xre + xim * xim).reshape(C, nframes, R * 128)[..., bins]
         del xre, xim
         pw = p if pw is None else pw + p                    # (C, k, nbins)
-    if accumulate:
-        return (pw.sum(1) * scale).T.contiguous()
+    return pw
+
+
+def _summed(pw, scale):
+    return (pw.sum(1) * scale).T.contiguous()
+
+
+def _per_frame(pw, scale):
     return (pw * scale).permute(2, 1, 0).contiguous()
+
+
+def stft_pow_reference(x, win, nfft, hop, nframes, accumulate, scale):
+    """Plain PyTorch version of stft_pow (_frame_powers, then the bin
+    scale per frame or on the sum over frames). x (n, C) float32, win
+    (nfft,) or (K, nfft), scale (nbins,) on x's device."""
+    pw = _frame_powers(x, win, nfft, hop, nframes, scale.shape[0])
+    return _summed(pw, scale) if accumulate else _per_frame(pw, scale)
+
+
+def stft_pow_fused_reference(x, win, nfft, hop, nframes, scale_frame,
+                             scale_sum):
+    """Plain PyTorch version of the fused call: the frames transformed
+    once, then stft_pow_reference's per-frame and summed outputs of
+    them."""
+    pw = _frame_powers(x, win, nfft, hop, nframes, scale_frame.shape[0])
+    return _per_frame(pw, scale_frame), _summed(pw, scale_sum)
+
+
+@table_cache("stft_blocks", lambda N1, C, nframes, K, device: (
+    N1, C, nframes, K, str(device)), 64)
+def _blocks(N1, C, nframes, K, device):
+    """The rows of a summed or fused launch's partial sums (the kernel's
+    frame blocks; they depend on the card's SMs, not on the data)."""
+    nblk = ctypes.c_int(0)
+    blocks = _build.entry("stft", "dsptpu_stft_blocks", _BLOCKS_ARGTYPES)
+    _build.check("stft", blocks(N1, C, nframes, K, ctypes.byref(nblk)),
+                 "stft kernel plan")
+    return nblk.value
 
 
 @spanned("kernel.stft")
@@ -180,12 +225,8 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     scale = scale.contiguous()
     part = None
     if accumulate:
-        nblk = ctypes.c_int(0)
-        blocks = _build.entry("stft", "dsptpu_stft_blocks", _BLOCKS_ARGTYPES)
-        _build.check("stft", blocks(N1, C, nframes, K, ctypes.byref(nblk)),
-                     "stft kernel plan")
-        part = torch.empty((nblk.value, nbins, C), dtype=torch.float32,
-                           device=dev)
+        part = torch.empty((_blocks(N1, C, nframes, K, dev), nbins, C),
+                           dtype=torch.float32, device=dev)
         out = torch.empty((nbins, C), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((nbins, nframes, C), dtype=torch.float32,
@@ -199,3 +240,49 @@ def stft_pow(x, win, nfft, hop, nframes, accumulate, scale):
     _build.check("stft", err, "stft kernel launch")
     launches["stft"] += 1
     return out
+
+
+@spanned("kernel.stft")
+def stft_pow_fused(x, win, nfft, hop, nframes, scale_frame, scale_sum):
+    """One transform of each frame f < nframes of x (n, C) float32,
+    windowed by win (nfft,), for both of stft_pow's outputs:
+    (stft_pow(..., False, scale_frame) (nbins, nframes, C),
+    stft_pow(..., True, scale_sum) (nbins, C)), the sum over the same
+    frame blocks as the summed launch's. The scales have the same
+    nbins; win and the scales may be numpy arrays."""
+    win = _f32_on(win, x.device)
+    scale_frame = _f32_on(scale_frame, x.device)
+    scale_sum = _f32_on(scale_sum, x.device)
+    if x.device.type == "cpu":
+        return stft_pow_fused_reference(x, win, nfft, hop, nframes,
+                                        scale_frame, scale_sum)
+    if x.ndim != 2 or not stft_supported(nfft, hop, x.dtype):
+        raise ValueError("stft kernel takes (n, C) float32, nfft and hop "
+                         "multiples of 128, 2 <= nfft/128 <= 16")
+    nbins = scale_frame.shape[-1]
+    if (win.shape != (nfft,) or nframes < 1 or scale_frame.ndim != 1
+            or not 1 <= nbins <= nfft or scale_sum.shape != (nbins,)):
+        raise ValueError("fused stft kernel takes one (nfft,) window, "
+                         "nframes >= 1 and two sets of 1 <= nbins <= nfft "
+                         "scales")
+    xc = x.contiguous()
+    n, C = xc.shape
+    N1 = nfft // 128
+    dev = xc.device
+    r1, tw, r128, _ = _tables(nfft, dev)
+    win = win.contiguous()
+    scale_frame = scale_frame.contiguous()
+    scale_sum = scale_sum.contiguous()
+    part = torch.empty((_blocks(N1, C, nframes, 1, dev), nbins, C),
+                       dtype=torch.float32, device=dev)
+    frames = torch.empty((nbins, nframes, C), dtype=torch.float32,
+                         device=dev)
+    summed = torch.empty((nbins, C), dtype=torch.float32, device=dev)
+    f = _build.entry("stft", "dsptpu_stft_pow_fused", _FUSED_ARGTYPES)
+    err = f(xc.data_ptr(), win.data_ptr(), r1.data_ptr(), tw.data_ptr(),
+            r128.data_ptr(), scale_frame.data_ptr(), scale_sum.data_ptr(),
+            part.data_ptr(), frames.data_ptr(), summed.data_ptr(), n, C, N1,
+            hop, nframes, nbins, _build.stream_of(xc))
+    _build.check("stft", err, "fused stft kernel launch")
+    launches["stft_fused"] += 1
+    return frames, summed

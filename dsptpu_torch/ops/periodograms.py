@@ -213,17 +213,22 @@ def _psd_weights(nfft, r, onesided):
     return w
 
 
+def _kernel_frames(s, n, noverlap, nfft, win):
+    """K3's arguments for the frames of s: (flat (len, C), the window
+    zero-padded to nfft, hop, frame count)."""
+    wext = np.zeros(nfft)
+    wext[:n] = win if win is not None else 1.0
+    return (s.reshape(s.shape[0], -1), wext, n - noverlap,
+            _num_segments(s.shape[0], n, noverlap))
+
+
 def _kernel_seg_pow(s, n, noverlap, nfft, win, wts, accumulate):
     """Weighted per-frame (nbins, k, *chans) or frame-summed
     (nbins, *chans) |DFT|^2 through K3, bins in order, nbins = len(wts).
     The weights (dsptpu applies them after its kernel) are folded into
     the kernel's store."""
     from ..kernels.stft import stft_pow
-    hop = n - noverlap
-    k = _num_segments(s.shape[0], n, noverlap)
-    flat = s.reshape(s.shape[0], -1)                  # (len, C)
-    wext = np.zeros(nfft)
-    wext[:n] = win if win is not None else 1.0
+    flat, wext, hop, k = _kernel_frames(s, n, noverlap, nfft, win)
     out = stft_pow(flat, wext, nfft, hop, k, accumulate, wts)
     lead = (len(wts),) if accumulate else (len(wts), k)
     return out.reshape(lead + tuple(s.shape[1:]))
@@ -419,6 +424,37 @@ def stft(s, n=None, noverlap=None, psdonly=False, onesided=None, nfft=None,
     else:
         out = F_
     return out.transpose(0, 1)                       # (nbins, k, *chans)
+
+
+@spanned("welch_stft")
+def _welch_stft_power(s, n, noverlap, nfft=None, fs=1.0, window=None):
+    """(welch_pgram(s, n, noverlap, nfft=nfft, fs=fs, window=window),
+    stft(s, n, noverlap, psdonly=True, nfft=nfft, fs=fs, window=window)):
+    the Welch PSD and the PSD-mode STFT of the same frames. Where K3's
+    gate holds for a real s with at least one frame, one fused K3 call
+    transforms each frame once, stores its weighted power and sums it
+    (the same values as the two calls); elsewhere the two ops run."""
+    s = _as_fft_input(s, None)
+    n = int(n)
+    noverlap = int(noverlap)
+    nfft = nextfastfft(n) if nfft is None else int(nfft)
+    k = _num_segments(s.shape[0], n, noverlap)
+    if k < 1 or not _stft_kernel_ok(s, n, nfft, n - noverlap):
+        return (welch_pgram(s, n, noverlap, nfft=nfft, fs=fs, window=window),
+                stft(s, n, noverlap, psdonly=True, nfft=nfft, fs=fs,
+                     window=window))
+    from ..kernels.stft import stft_pow_fused
+    win, norm2 = _resolve_window(window, n)
+    flat, wext, hop, _ = _kernel_frames(s, n, noverlap, nfft, win)
+    # the weights of stft and of welch_pgram, each computed as there
+    frames, summed = stft_pow_fused(
+        flat, wext, nfft, hop, k, _psd_weights(nfft, fs * norm2, True),
+        _psd_weights(nfft, k * float(fs) * norm2, True))
+    chans = tuple(s.shape[1:])
+    nbins = nfft // 2 + 1
+    return (Periodogram(summed.reshape((nbins,) + chans),
+                        np.fft.rfftfreq(nfft, 1 / float(fs))),
+            frames.reshape((nbins, k) + chans))
 
 
 def spectrogram(s, n=None, noverlap=None, onesided=None, nfft=None, fs=1.0,

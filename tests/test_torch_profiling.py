@@ -285,7 +285,7 @@ def test_counters_and_reset(clean_ring):
     kernels.reset_launches()
     assert profiling.counters() == {} and profiling.spans() == []
     assert set(kernels.launch_counts()) == set(kernels.KERNELS) | {
-        "biir_reverse"}
+        "biir_reverse", "stft_fused"}
 
 
 def test_span_names_in_a_cpu_profiler_trace(tmp_path, clean_ring):

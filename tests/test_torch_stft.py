@@ -2,7 +2,10 @@
 spectrogram / periodogram against dsptpu's, and the plain version of K3
 (kernels/stft.stft_pow_reference, what the wrapper runs on a CPU tensor)
 against dsptpu's Pallas STFT kernel in interpret mode, decoded from its
-tile layout with bins_from_tile / onesided_bins_from_tile.
+tile layout with bins_from_tile / onesided_bins_from_tile. The fused
+Welch + STFT op (periodograms._welch_stft_power) against the two ops,
+exactly; a numpy emulation of csrc/stft.cu's thread and block layout,
+its three modes held to each other.
 
 Inputs come from a numpy seed and go to both packages as explicit
 float32 or float64 arrays. Tolerances: max|d| <= 1e-10 max|ref| in
@@ -20,6 +23,8 @@ from dsptpu.kernels.stft import (bins_from_tile, onesided_bins_from_tile,
                                  stft_pow_pallas)
 from dsptpu_torch.convert import window_from_numpy
 from dsptpu_torch.kernels import stft as tstft
+from dsptpu_torch.ops.periodograms import _welch_stft_power
+from dsptpu_torch.utils import profiling
 
 TOL = {np.float64: 1e-10, np.float32: 3e-5}
 
@@ -333,3 +338,204 @@ def test_k3_host_tables_match_numpy(nfft):
     assert np.array_equal(rows, np.where(mirror, N1 - k % N1, k % N1))
     assert np.array_equal(cols, np.where(mirror, 127 - k // N1, k // N1))
     assert (rows <= N1 // 2).all()
+
+
+# --- the fused Welch + STFT op ----------------------------------------
+
+
+def _two_ops(x, n, nov, nfft, **kw):
+    p = dsptpu_torch.welch_pgram(x, n, nov, nfft=nfft, **kw)
+    return p, dsptpu_torch.stft(x, n, nov, psdonly=True, nfft=nfft, **kw)
+
+
+@pytest.mark.parametrize("chans", [(), (1,), (3,), (64,), (2, 2)])
+@pytest.mark.parametrize("nfft", [256, 1024, 2048])
+def test_welch_stft_power_plain_matches_the_two_ops(nfft, chans):
+    """The fused op on a CPU tensor (the fused wrapper's plain version)
+    equals welch_pgram and stft(psdonly=True) bit for bit: 13 frames, a
+    tail past the last one, a window and fs."""
+    hop = nfft // 2
+    n = 12 * hop + nfft + 37
+    x = torch.as_tensor(np.random.default_rng(nfft).standard_normal(
+        (n,) + chans).astype(np.float32))
+    win = np.hanning(nfft).astype(np.float32)
+    got_p, got_s = _welch_stft_power(x, nfft, nfft - hop, nfft, fs=2.5,
+                                     window=win)
+    want_p, want_s = _two_ops(x, nfft, nfft - hop, nfft, fs=2.5, window=win)
+    assert torch.equal(got_p.power, want_p.power)
+    assert np.array_equal(got_p.freq, want_p.freq)
+    assert torch.equal(got_s, want_s)
+    assert got_s.shape == (nfft // 2 + 1, 13) + chans
+    assert tstft.launches["stft_fused"] == 0
+
+
+@pytest.mark.parametrize("case", ["nfft1000", "complex", "float64",
+                                  "no_window"])
+def test_welch_stft_power_off_the_gate_is_the_two_ops(case):
+    """Gate misses run the two ops: nfft not a multiple of 128, a complex
+    or float64 signal; and on the gate, no window (a rectangular one)."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((9000, 3)).astype(np.float32)
+    n, nfft = (1000, 1000) if case == "nfft1000" else (512, 512)
+    if case == "complex":
+        x = x + 1j * rng.standard_normal(x.shape).astype(np.float32)
+    if case == "float64":
+        x = x.astype(np.float64)
+    x = torch.as_tensor(x)
+    win = None if case == "no_window" else np.hanning(n)
+    got_p, got_s = _welch_stft_power(x, n, n // 2, nfft, window=win)
+    want_p, want_s = _two_ops(x, n, n // 2, nfft, window=win)
+    assert torch.equal(got_p.power, want_p.power)
+    assert np.array_equal(got_p.freq, want_p.freq)
+    assert torch.equal(got_s, want_s)
+
+
+def test_welch_stft_power_matches_dsptpu():
+    """Against dsptpu's welch_pgram and stft on the same frames."""
+    x = np.random.default_rng(21).standard_normal((9000, 3)).astype(
+        np.float32)
+    win = np.hanning(1024).astype(np.float32)
+    p, s = _welch_stft_power(torch.as_tensor(x), 1024, 512, 1024,
+                             window=win)
+    want_p = dsptpu.welch_pgram(jnp.asarray(x), 1024, 512, nfft=1024,
+                                window=jnp.asarray(win))
+    want_s = dsptpu.stft(jnp.asarray(x), 1024, 512, psdonly=True,
+                         nfft=1024, window=jnp.asarray(win))
+    check(p.power, want_p.power, 3e-5)
+    check(s, want_s, 3e-5)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+def test_welch_stft_power_spans(gate):
+    """One span `welch_stft` a call: on the gate one fused wrapper call
+    under it, off it the two ops' spans."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (5000, 2)).astype(np.float32))
+    nfft = 256 if gate else 200
+    profiling.reset()
+    profiling.tracing(True)
+    try:
+        _welch_stft_power(x, nfft, nfft // 2, nfft, window=np.hanning(nfft))
+    finally:
+        profiling.tracing(False)
+    names = [r[3] for r in profiling.spans()]
+    assert names == (["welch_stft", "kernel.stft"] if gate
+                     else ["welch_stft", "welch_pgram", "stft"])
+
+
+def test_fused_wrapper_plain_matches_both_modes():
+    """stft_pow_fused on a CPU tensor: stft_pow's per-frame and summed
+    outputs, exactly, with scales of their own."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((7000, 5)).astype(np.float32))
+    win = rng.uniform(0.1, 1.0, 384)
+    sf, ss = rng.uniform(0.5, 2.0, 193), rng.uniform(0.5, 2.0, 193)
+    k = (7000 - 384) // 128 + 1
+    frames, summed = tstft.stft_pow_fused(x, win, 384, 128, k, sf, ss)
+    assert torch.equal(frames, tstft.stft_pow(x, win, 384, 128, k, False,
+                                              sf))
+    assert torch.equal(summed, tstft.stft_pow(x, win, 384, 128, k, True,
+                                              ss))
+
+
+# --- the kernel's three modes, emulated over blocks of frames ---------
+
+
+def _plan(N1, C, nframes, slots):
+    """plan_launch's split on a card with `slots` resident blocks (SMs x
+    occupancy): (G, groups, fpb, nfb)."""
+    pairs = (C + 1) // 2
+    G = min(32 // N1, pairs)
+    groups = -(-pairs // G)
+    nfb = max(1, min(nframes, slots // groups))
+    fpb = -(-nframes // nfb)
+    return G, groups, fpb, -(-nframes // fpb)
+
+
+def _emulate_k3(x, win, N1, hop, nframes, nbins, scale, mode, slots,
+                scale_sum=None):
+    """stft_kernel (mode "frames" or "sum") or stft_fused_kernel
+    ("fused") and the reduce pass over plan_launch's blocks, one window:
+    each frame's power in float32 as pass C leaves it, the per-frame
+    store, the running sums in float32 in frame order, part[blk] and
+    the second pass in block order. Returns (frames (nbins, nframes, C)
+    or None, summed (nbins, C) or None); every element written once."""
+    n, C = x.shape
+    nfft = 128 * N1
+    G, groups, fpb, nfb = _plan(N1, C, nframes, slots)
+    tabs = _tables64(N1)
+    f32 = np.float32
+    frames = np.full((nbins, nframes, C), np.nan, f32)
+    part = np.full((nfb, nbins, C), np.nan, f32)
+    for by in range(groups):
+        cs = np.arange(2 * G) + 2 * G * by
+        live = cs < C
+        for bx in range(nfb):
+            acc = np.zeros((2 * G, nbins), f32)
+            for f in range(bx * fpb, min(nframes, (bx + 1) * fpb)):
+                t = f * hop + np.arange(nfft)
+                xs = np.zeros((nfft, 2 * G))
+                xs[np.ix_(t < n, live)] = x[np.ix_(t[t < n], cs[live])]
+                p = _emulate_k3_frame(xs, win[None], N1, G, (f * hop) % nfft,
+                                      tabs)[:, :nbins].astype(f32)
+                if mode == "frames":
+                    acc = np.zeros_like(acc)
+                    acc += p
+                    out = acc
+                else:
+                    out = p
+                    acc += p
+                if mode != "sum":
+                    assert np.isnan(frames[:, f, cs[live]]).all()
+                    frames[:, f, cs[live]] = (out * scale).T[:, live]
+            if mode != "frames":
+                assert np.isnan(part[bx][:, cs[live]]).all()
+                part[bx][:, cs[live]] = acc.T[:, live]
+    summed = None
+    if mode != "frames":
+        assert not np.isnan(part).any()
+        s = np.zeros((nbins, C), f32)
+        for b in range(nfb):
+            s += part[b]
+        summed = s * (scale if mode == "sum" else scale_sum)[:, None]
+    if mode == "sum":
+        return None, summed
+    assert not np.isnan(frames).any()
+    return frames, summed
+
+
+# (N1, C, nframes, hop, slots): ragged last blocks (7 frames in runs of
+# 2, 5 in runs of 3), one block, one frame a block, hop = nfft, odd C
+# (a zero imaginary channel) and two channel groups
+FUSED_CASES = [(2, 3, 7, 128, 6), (8, 9, 5, 512, 4), (3, 2, 6, 384, 4),
+               (4, 1, 3, 512, 1), (5, 4, 4, 640, 8), (2, 64, 3, 128, 200)]
+
+
+@pytest.mark.parametrize("N1,C,nframes,hop,slots", FUSED_CASES)
+def test_k3_fused_mode_emulation_matches_both_modes(N1, C, nframes, hop,
+                                                    slots):
+    """The fused mode's per-frame store equals the per-frame mode's and
+    its block partials and second pass the summed mode's, bit for bit
+    in float32, under plan_launch's split; both against numpy's FFT."""
+    nfft = 128 * N1
+    nbins = nfft // 2 + 1 if N1 % 2 == 0 else nfft
+    rng = np.random.default_rng(N1 * 100 + C)
+    n = (nframes - 1) * hop + nfft - 61       # the last frame runs past n
+    x = rng.standard_normal((n, C))
+    win = rng.uniform(0.1, 1.0, nfft)
+    sf = rng.uniform(0.5, 2.0, nbins).astype(np.float32)
+    ss = rng.uniform(0.5, 2.0, nbins).astype(np.float32)
+    args = (x, win, N1, hop, nframes, nbins)
+    fr, su = _emulate_k3(*args, sf, "fused", slots, scale_sum=ss)
+    fr_alone, _ = _emulate_k3(*args, sf, "frames", slots)
+    _, su_alone = _emulate_k3(*args, ss, "sum", slots)
+    assert np.array_equal(fr, fr_alone)
+    assert np.array_equal(su, su_alone)
+    xp = np.zeros(((nframes - 1) * hop + nfft, C))
+    xp[:n] = x
+    segs = np.stack([xp[f * hop:f * hop + nfft] for f in range(nframes)])
+    pw = np.abs(np.fft.fft(segs * win[None, :, None], axis=1))[:, :nbins]
+    pw = (pw ** 2).transpose(1, 0, 2)                    # (nbins, k, C)
+    tol = 1e-6 * pw.max()
+    assert np.abs(fr - sf[:, None, None] * pw).max() <= tol
+    assert np.abs(su - ss[:, None] * pw.sum(1)).max() <= tol * nframes
