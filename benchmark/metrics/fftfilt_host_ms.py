@@ -1,0 +1,15 @@
+"""fftfilt_host_ms: the host's self time a call, in ms, in the spans of
+path A's call, `entry`, `fftfilt` and `kernel.osconv`, over the calls
+of the device-alone profile (dsptpu_torch.utils.profiling.self_times):
+the whole host path of a call. A program without one of these spans
+leaves it out. Layer: ops and routing (host)."""
+
+SPANS = ("entry", "fftfilt", "kernel.osconv")
+
+
+def read(trace):
+    from benchmark import spans
+    st = spans.self_times(trace)
+    if not st or not any(k in st for k in SPANS):
+        return None
+    return 1e3 * sum(st.get(k, 0.0) for k in SPANS)

@@ -672,6 +672,7 @@ def tdfilt(h, x, device=None):
     return dspbase.filt(_as_1d(h, "h", x.device), None, x)
 
 
+@spanned("fftfilt")
 def fftfilt(b, x, nfft=None, device=None):
     """FIR filtering by overlap-save FFT blocks along axis 0 (K4 where
     its gate holds); the output has x's length."""

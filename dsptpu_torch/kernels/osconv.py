@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ..utils.profiling import spanned, table_cache
+from ..utils.profiling import count, spanned, table_cache
 
 __all__ = ["osconv", "osconv_reference", "osconv_supported", "os_fft",
            "launches"]
@@ -151,11 +151,14 @@ def _spectrum(v, nfft):
     float32 (nfft, 2) re/im pairs: computed once per (filter, nfft) in
     float64 by torch.fft and cached. The cache holds the filter tensor
     itself, so its storage is not reused while the entry lives, and
-    checks its version counter, so an in-place change misses."""
+    checks its version counter, so an in-place change misses. Each
+    lookup counts `table.os_spec.hit` or `table.os_spec.miss`."""
     key = (v.data_ptr(), v.shape[0], str(v.device), nfft)
     hit = _spec_cache.get(key)
     if hit is not None and hit[0] is v and hit[1] == v._version:
+        count("table.os_spec.hit")
         return hit[2]
+    count("table.os_spec.miss")
     H = torch.fft.fft(v.double(), n=nfft) / nfft
     idx = torch.as_tensor(_perm(nfft), device=v.device)
     Hp = torch.view_as_real(H[idx]).float().contiguous()

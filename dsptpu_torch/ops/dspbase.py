@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..utils.device import as_tensor, no_tf32
 from ..utils.fftutil import fftintype
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 
 __all__ = ["filt", "conv", "conv_with_offset", "deconv", "xcorr",
            "optimal_os_nfft"]
@@ -343,8 +343,10 @@ def _conv_os_1d(u, v, nfft=None, out_len=None):
         raise ValueError("nfft must be at least the filter length")
     flat = u.reshape(nu, -1).to(dtype)
     if osconv_supported(nfft, nv, dtype):
+        count("route.conv_os.k4")
         y = osconv(flat, v.to(dtype), nfft, nout)
         return y.reshape((nout,) + tuple(u.shape[1:]))
+    count("route.conv_os.fft")
     L = nfft - nv + 1
     if L >= 256:
         L = (L // 128) * 128
