@@ -199,6 +199,28 @@ def fused_cases(x, win, nfft, hop, k, sf, ss, what):
     return err
 
 
+def k4_routed(call, route, what):
+    """call() (one K4 launch), raising unless it counted
+    `route.osconv.<route>`."""
+    from dsptpu_torch.utils import profiling
+    key = f"route.osconv.{route}"
+    before = profiling.counters().get(key, 0)
+    out = call()
+    if profiling.counters().get(key, 0) != before + 1:
+        raise AssertionError(f"osconv {what}: not on the {route} route")
+    return out
+
+
+def k4_by_pairs(x, v, nfft, out_len):
+    """K4 on each two-channel slice of x (the per-pair instance), side by
+    side: what the cluster route must equal bit for bit."""
+    import torch
+    from dsptpu_torch.kernels import osconv
+    return torch.cat([osconv.osconv(x[:, c:c + 2].contiguous(), v, nfft,
+                                    out_len)
+                      for c in range(0, x.shape[1], 2)], 1)
+
+
 def small_cases(dev):
     """Every kernel against its plain version at small ragged shapes."""
     import torch
@@ -385,6 +407,33 @@ def small_cases(dev):
                             osconv.osconv_reference(x, v, nfft, out_len),
                             f"nfft={nfft} nv={nv} n={n} C={C} "
                             f"out_len={out_len}")
+
+    # K4's cluster route (nfft 8192 and 16384, C % 8 == 0, x and y 16-byte
+    # aligned) at C = 8, 24 and 32: each call counted on the route its
+    # shape takes, against the plain version, and bit for bit against the
+    # per-pair instance on each two-channel slice (C = 2 takes it); a view
+    # at a 4-byte offset falls back to the per-pair instance
+    for nfft, nvs in [(8192, (300, 7169)), (16384, (4096, 14337))]:
+        for nv in nvs:
+            v = t(rng.standard_normal(nv))
+            for n, C in [(nfft * 2 + 101, 8), (nfft * 3 + 77, 24),
+                         (nfft * 2 + 13, 32)]:
+                x = t(rng.standard_normal((n, C)))
+                for out_len in (n + nv - 1, n):
+                    what = (f"cluster route nfft={nfft} nv={nv} n={n} C={C} "
+                            f"out_len={out_len}")
+                    y = k4_routed(lambda: osconv.osconv(x, v, nfft, out_len),
+                                  "cluster", what)
+                    compare("osconv", y,
+                            osconv.osconv_reference(x, v, nfft, out_len),
+                            what)
+                    exact("osconv", y, k4_by_pairs(x, v, nfft, out_len),
+                          f"{what} vs the per-pair instance")
+            x = view(1, nfft * 2 + 101, 16)
+            what = f"nfft={nfft} nv={nv} C=16 at a 4-byte offset"
+            y = k4_routed(lambda: osconv.osconv(x, v, nfft), "pair", what)
+            compare("osconv", y, osconv.osconv_reference(
+                x, v, nfft, x.shape[0] + nv - 1), what)
 
     # K2 reverse, whole signal and n_eff, p = 3, 8, 20
     ss3 = _blockss(*_single_ss([0.2, 0.1, 0.05, 0.02],
@@ -671,6 +720,7 @@ def path_a(dev):
     from dsptpu_torch.kernels import osconv
     from dsptpu_torch.ops.dspbase import optimal_os_nfft
     from dsptpu_torch.pipeline import fftfilt_taps
+    from dsptpu_torch.utils import profiling
 
     forward, (x,) = dsptpu_torch.fftfilt_entry(device="cuda")
     n, C = x.shape
@@ -683,9 +733,12 @@ def path_a(dev):
     K = -(-n // L)
     log(f"path A: x ({n}, {C}) float32, {nv} taps, nfft {nfft}, advance "
         f"{L}, {K} frames per channel")
-    y = osconv.osconv(x, h, nfft, n)
+    y = k4_routed(lambda: osconv.osconv(x, h, nfft, n), "cluster",
+                  "path A shapes")
     err = compare("osconv", y, osconv.osconv_reference(x, h, nfft, n),
                   "path A shapes")
+    exact("osconv", y, k4_by_pairs(x, h, nfft, n),
+          "path A shapes, cluster route vs the per-pair instance")
     del y
 
     def library():
@@ -714,9 +767,14 @@ def path_a(dev):
     y = forward(x)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"path A: launches {counts}")
+    routes = {k: c for k, c in profiling.counters().items()
+              if k.startswith("route.osconv.")}
+    log(f"path A: launches {counts}, K4 routes {routes}")
     if counts["osconv"] < 1 or counts["fir"] != 0:
         raise AssertionError(f"path A missed K4 or took K1: {counts}")
+    if routes != {"route.osconv.cluster": 1}:
+        raise AssertionError(f"path A: K4 routes {routes}, not one cluster "
+                             "launch a call")
     if y.shape != (n, C) or not torch.isfinite(y).all():
         raise AssertionError(f"path A: shape {tuple(y.shape)} or "
                              "non-finite output")

@@ -44,9 +44,33 @@
 //     G transforms, G (pair, frame) jobs side by side, pairs fastest, so
 //     that a warp's loads cover neighbouring channel pairs of the same
 //     rows; blocks walk job groups in a grid-stride loop.  At G = 1 (M >=
-//     8192) a warp reads 8 bytes of each of 32 rows, and the other channel
-//     pairs' bytes of the same 32-byte sectors cross from L2 again for
-//     their own blocks (4x the sectors at C = 16).
+//     8192) one block holds one pair, and a warp's loads would take 8
+//     bytes of each of 32 rows: every 32-byte sector crosses from L2 once
+//     for each of the 4 pairs that share it (4x the sectors at C = 16).
+//     So where C % 8 == 0 and x and y are 16-byte aligned, G = 1 takes the
+//     cluster instance (osconv_kernel_cluster<M>, same FFT core, so the
+//     outputs are bit for bit the per-pair instance's): a cluster of 4
+//     CTAs, one an SM, takes one frame of 4 neighbouring pairs, channels
+//     8q .. 8q + 7 (one sector of each row); rank k owns pair 4q + k.
+//       - Loads: rank k reads a quarter of the frame's rows, all 8
+//         channels (lane pairs on a row's 32 bytes, 16 bytes a lane, 16
+//         loads a thread in flight), and puts each pair into its owner's
+//         exchange buffer at the first pass's slot, through distributed
+//         shared memory; after a cluster barrier each thread reads its
+//         registers from its own buffer.
+//       - Stores: after the inverse each CTA writes its frame into its
+//         exchange buffer in register order; after a cluster barrier rank
+//         k gathers a quarter of the L output rows from the 4 buffers and
+//         writes each row's 32 bytes as two 16-byte stores.  A third
+//         barrier, waited on before the next job's loads are put, keeps a
+//         buffer until its readers are done; its arrival is relaxed, so
+//         that it does not wait for the stores in flight.
+//     A TMA design (256-row boxes multicast into an 8-box ring beside the
+//     buffer, each CTA taking in all 4 pairs' bytes, an mbarrier
+//     handshake across the cluster a box) took 4.6 ms for path A with the
+//     transform knocked out, against 0.8 ms for this staging.
+//     Every other shape (C % 8 != 0, M <= 4096 where G >= 2 already
+//     shares sectors, odd m, unaligned views) keeps osconv_kernel<M, ODD>.
 //   * m > 1: the odd radix-m stage is folded into the load (sub-block c:
 //     sum over n1 of z[n1 M + r] W_nfft^((n1 M + r) c)) and the inverse one
 //     into the store; a block takes one job at a time, its G transform
@@ -61,7 +85,11 @@
 // once, output written once); the FFT work (about 5 nfft log2 nfft flops
 // per frame and pair each way) is some 60% of that time on the CUDA
 // cores at nfft 16384.  The frame is read with its save region, nfft / L
-// times the input; the other channel pairs of the same rows come from L2.
+// times the input; the other channel pairs of the same rows come from L2
+// (once a sector on the cluster route).  The cluster route moves the
+// frame through shared memory twice more (the staging and the gather)
+// and waits at 3 cluster barriers a job, with one CTA an SM at M = 16384:
+// on path A about half its time is the transform.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -508,6 +536,136 @@ osconv_kernel(const float* __restrict__ x, const float2* __restrict__ Hp,
     }
 }
 
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+// An arrival that orders nothing: for a barrier that only says this CTA
+// has read other CTAs' shared memory (every value read has come back, so
+// no later write can change it), it does not wait for the global stores
+// in flight.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// A generic pointer to CTA `rank`'s copy of the shared variable at p.
+__device__ __forceinline__ float2* remote_ptr(float2* p, int rank) {
+    uint64_t r;
+    asm volatile("mapa.u64 %0, %1, %2;"
+                 : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+    return reinterpret_cast<float2*>(r);
+}
+
+// An int the compiler cannot see through: values derived from it after
+// the transform are computed there, not kept in registers across it.
+__device__ __forceinline__ int opaque(int v) {
+    asm volatile("" : "+r"(v));
+    return v;
+}
+
+// The cluster route (see the note at the top): m = 1, M >= 8192 (G = 1).
+// A cluster of 4 CTAs walks jobs J = (frame f, channel group q), groups
+// fastest; rank k = blockIdx.x % 4 (a 1-D grid of 1-D clusters) owns pair
+// 4q + k.  Per job: rank k loads rows [k M/4, (k + 1) M/4) of the frame,
+// lane pairs on a row's 32 bytes, lane t 16 bytes (pairs 2 (t & 1), 2 (t
+// & 1) + 1), and puts each pair into its owner's exchange buffer at the
+// first pass's slot (row p at p + p / R); after a cluster barrier each
+// thread reads its registers from its own buffer, transforms, and writes
+// its outputs back in register order (row i T + t); after a second
+// barrier rank k gathers output rows [k L/4, (k + 1) L/4) from the 4
+// buffers and stores them as whole 32-byte segments.  A third barrier,
+// waited on before the next job's staging, keeps each buffer until its
+// readers are done.  Across the transform only J stays in registers.
+template <int M>
+__global__ void __launch_bounds__(Plan<M>::THREADS, Plan<M>::MINB)
+osconv_kernel_cluster(const float* __restrict__ x,
+                      const float2* __restrict__ Hp,
+                      const float2* __restrict__ tw2,
+                      float* __restrict__ y, long long n, int C, int L,
+                      long long nout, int K) {
+    using PL = Plan<M>;
+    constexpr int R = PL::R, T = PL::T, THREADS = PL::THREADS;
+    constexpr int QR = M / 4;                    // rows a rank stages
+    constexpr int LOADS = 2 * QR / THREADS;      // 16-byte loads a thread
+    static_assert(PL::G == 1 && 2 * QR % THREADS == 0, "G = 1 only");
+    extern __shared__ __align__(16) float2 csmem[];
+    float2* ex = csmem;                          // SLOT exchange slots
+    const int jobs = C / 8 * K;        // < 2^31 (checked at the launch)
+
+    cluster_arrive();   // no outputs of a previous job to wait for
+    float2 a[R];
+    for (int J = blockIdx.x / 4; J < jobs; J += gridDim.x / 4) {
+        {
+            const int t = threadIdx.x, rank = blockIdx.x & 3;
+            const int f = J / (C / 8), q = J % (C / 8);
+            // frame row p = rank QR + (u THREADS + t) / 2 is row g0 + (u
+            // THREADS + t) / 2 of x
+            const long long g0 = (long long)f * L - (M - L) + rank * QR;
+            const float* px = x + g0 * C + 8 * q + 4 * (t & 1);
+            float4 v[LOADS];
+#pragma unroll
+            for (int u = 0; u < LOADS; ++u) {
+                const int pl = (u * THREADS + t) >> 1;
+                const long long g = g0 + pl;
+                v[u] = g >= 0 && g < n
+                    ? __ldg(reinterpret_cast<const float4*>(
+                          px + (long long)pl * C))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            float2* o0 = remote_ptr(ex, 2 * (t & 1));
+            float2* o1 = remote_ptr(ex, 2 * (t & 1) + 1);
+            cluster_wait();   // the cluster has read this CTA's last outputs
+#pragma unroll
+            for (int u = 0; u < LOADS; ++u) {
+                const int p = rank * QR + ((u * THREADS + t) >> 1);
+                o0[p + p / R] = make_float2(v[u].x, v[u].y);
+                o1[p + p / R] = make_float2(v[u].z, v[u].w);
+            }
+        }
+        cluster_arrive();
+        cluster_wait();       // every pair of the frame is with its owner
+        {
+            const float2* own = ex + slot_base<M, 1>(threadIdx.x);
+#pragma unroll
+            for (int i = 0; i < R; ++i) a[i] = own[slot_off<M, 1>(i)];
+        }
+        convolve<M>(a, ex, threadIdx.x, 0, tw2, Hp);
+        __syncthreads();      // every thread has left the last exchange
+#pragma unroll
+        for (int i = 0; i < R; ++i) ex[i * T + threadIdx.x] = a[i];
+        cluster_arrive();
+        cluster_wait();
+        // rank k stores output rows [k L/4, (k + 1) L/4) of the frame: a
+        // lane takes one row's half (pairs 2 hh, 2 hh + 1: channels 8q +
+        // 4 hh .. + 3), 16 rows a warp, both halves of a row side by side
+        {
+            const int Jo = opaque(J);
+            const int f = Jo / (C / 8), q = Jo % (C / 8);
+            const int Lq = L / 4;
+            const int hh = (threadIdx.x >> 4) & 1;
+            const float2* lo = remote_ptr(ex, 2 * hh) + (M - L);
+            const float2* hi = remote_ptr(ex, 2 * hh + 1) + (M - L);
+            const int r0 = (blockIdx.x & 3) * Lq;
+            float* py = y + ((long long)f * L + r0) * C + 8 * q + 4 * hh;
+            const long long left = nout - (long long)f * L - r0;
+            for (int j = threadIdx.x; j < 2 * Lq; j += THREADS) {
+                const int row = (j >> 5) * 16 + (j & 15);
+                if (row < left) {
+                    const float2 u = lo[r0 + row], w = hi[r0 + row];
+                    *reinterpret_cast<float4*>(py + (long long)row * C) =
+                        make_float4(u.x, u.y, w.x, w.y);
+                }
+            }
+        }
+        cluster_arrive_relaxed();   // waited on before the next staging
+    }
+    cluster_wait();           // no CTA leaves while others read its memory
+}
+
 using KernelFn = void (*)(const float*, const float2*, const float2*,
                           const float2*, float*, long long, int, int, int,
                           long long, int);
@@ -548,12 +706,72 @@ int launch(const void* x, const void* Hp, const void* wn, const void* tw2,
     return cudaGetLastError();
 }
 
-// The kernel for M and odd = (m > 1): m = 1 takes M from 256 (nfft >= 256)
-// to 16384, m >= 3 M up to 4096 (nfft <= 16384).
+// The cluster route: x and y 16-byte aligned, C % 8 == 0, every frame
+// row and job number an int.
 template <int M>
-int dispatch(bool odd, const void* x, const void* Hp, const void* wn,
-             const void* tw2, void* y, long long n, int C, int N, int L,
-             long long nout, cudaStream_t st) {
+int launch_cluster(const void* x, const void* Hp, const void* tw2, void* y,
+                   long long n, int C, int L, long long nout,
+                   cudaStream_t st) {
+    using PL = Plan<M>;
+    const auto kern = osconv_kernel_cluster<M>;
+    const long long K = (nout + L - 1) / L;
+    const long long jobs = (long long)(C / 8) * K;
+    if (K <= 0 || jobs <= 0) return cudaSuccess;
+    if (C % 8 || ((uintptr_t)x & 15) || ((uintptr_t)y & 15) ||
+        K * L + M > 0x7fffffff || jobs > 0x7fffffff)
+        return cudaErrorInvalidValue;
+    const size_t smem = sizeof(float2) * PL::SLOT;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 4;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(4);
+    cfg.blockDim = dim3(PL::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // one wave of clusters, each walking its jobs (the count cached by
+    // device: it depends on nothing else)
+    static int cached[64];
+    int dev = 0, clusters = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if (dev < 64 && cached[dev] > 0) {
+        clusters = cached[dev];
+    } else {
+        if ((err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg)) !=
+            cudaSuccess)
+            return err;
+        if (clusters < 1) return cudaErrorInvalidConfiguration;
+        if (dev < 64) cached[dev] = clusters;
+    }
+    cfg.gridDim = dim3(4 * (unsigned)(clusters < jobs ? clusters : jobs));
+    err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(x),
+                             static_cast<const float2*>(Hp),
+                             static_cast<const float2*>(tw2),
+                             static_cast<float*>(y), n, C, L, nout, (int)K);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+// The kernel for M and odd = (m > 1): m = 1 takes M from 256 (nfft >= 256)
+// to 16384, m >= 3 M up to 4096 (nfft <= 16384); cluster: m = 1 and M >=
+// 8192 only.
+template <int M>
+int dispatch(bool odd, bool cluster, const void* x, const void* Hp,
+             const void* wn, const void* tw2, void* y, long long n, int C,
+             int N, int L, long long nout, cudaStream_t st) {
+    if (cluster) {
+        if constexpr (M >= 8192)
+            if (!odd)
+                return launch_cluster<M>(x, Hp, tw2, y, n, C, L, nout, st);
+        return cudaErrorInvalidValue;
+    }
     if (odd) {
         if constexpr (M <= 4096)
             return launch<M, true>(x, Hp, wn, tw2, y, n, C, N, L, nout, st);
@@ -577,32 +795,43 @@ const char* dsptpu_error_string(int err) {
 // exp(-2 pi i e / N); tw2: (M/2,) float2, exp(-2 pi i j / M); y:
 // (nout, C).  N = nfft = m * M with m odd, M a power of two in
 // [128, 16384]; L the block advance, a multiple of 128 with L <= N.
+// cluster: take the cluster instance (kernels/osconv.py:cluster_route:
+// m = 1, M >= 8192, C % 8 == 0, x and y 16-byte aligned); anything else
+// there is refused.
 int dsptpu_osconv(const void* x, const void* Hp, const void* wn,
                   const void* tw2, void* y, long long n, int C, int N, int M,
-                  int L, long long nout, void* stream) {
+                  int L, long long nout, int cluster, void* stream) {
     auto st = static_cast<cudaStream_t>(stream);
     if ((M & (M - 1)) || N % M || (N / M) % 2 == 0 || L <= 0 || L > N ||
         C <= 0 || N > 16384)
         return cudaErrorInvalidValue;
     const bool odd = N > M;
+    const bool cl = cluster != 0;
     switch (M) {
         case 128:
-            return dispatch<128>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<128>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L, nout,
+                                 st);
         case 256:
-            return dispatch<256>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<256>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L, nout,
+                                 st);
         case 512:
-            return dispatch<512>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<512>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L, nout,
+                                 st);
         case 1024:
-            return dispatch<1024>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<1024>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L,
+                                  nout, st);
         case 2048:
-            return dispatch<2048>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<2048>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L,
+                                  nout, st);
         case 4096:
-            return dispatch<4096>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<4096>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L,
+                                  nout, st);
         case 8192:
-            return dispatch<8192>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout, st);
+            return dispatch<8192>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L,
+                                  nout, st);
         case 16384:
-            return dispatch<16384>(odd, x, Hp, wn, tw2, y, n, C, N, L, nout,
-                                   st);
+            return dispatch<16384>(odd, cl, x, Hp, wn, tw2, y, n, C, N, L,
+                                   nout, st);
         default:
             return cudaErrorInvalidValue;
     }

@@ -20,6 +20,18 @@ each sample crosses device memory about nfft / L times on the way in
 and once on the way out: see the design note at the top of
 csrc/osconv.cu.
 
+At nfft 8192 and 16384 one block holds one channel pair, and the 4 pairs
+whose 8 bytes share each 32-byte sector of a row (C % 8 == 0) would read
+and write that sector once each. There (`cluster_route`: also x and y
+16-byte aligned) a cluster of 4 blocks takes the 4 pairs of one frame:
+each block loads a quarter of the frame's rows, all 8 channels, and
+hands each pair to its owner's shared memory, and after the transform
+stores a quarter of the output rows, all 8 channels of a row, gathered
+from the 4 blocks, so every sector crosses once each way. Every other
+shape launches the per-pair instance; both run the same FFT, so the
+outputs are bit for bit the same. Each launch counts
+`route.osconv.cluster` or `route.osconv.pair`.
+
 `osconv` launches the kernel for a CUDA tensor and runs
 `osconv_reference`, the plain PyTorch version (the same blocks through
 torch.fft on unfolded frames), for a CPU tensor. `os_fft` is that
@@ -37,15 +49,16 @@ from . import _build
 from ..utils.profiling import count, spanned, table_cache
 
 __all__ = ["osconv", "osconv_reference", "osconv_supported", "os_fft",
-           "launches"]
+           "cluster_route", "launches"]
 
 launches = {"osconv": 0}
 
-# dsptpu_osconv(x, Hp, wn, tw2, y, n, C, nfft, M, L, nout, stream)
+# dsptpu_osconv(x, Hp, wn, tw2, y, n, C, nfft, M, L, nout, cluster,
+#               stream)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
 
 _spec_cache = {}
 
@@ -64,6 +77,18 @@ def osconv_supported(nfft, nv, dtype):
 
 def _advance(nfft, nv):
     return ((nfft - nv + 1) // 128) * 128
+
+
+def cluster_route(nfft, C, nout, L, x_ptr, y_ptr):
+    """Whether K4 takes its cluster instance (csrc/osconv.cu,
+    `launch_cluster`): a power-of-two nfft of 8192 or more (one pair a
+    block), C % 8 == 0 (4 pairs share each sector of a row), x and y at
+    16-byte aligned addresses, and every frame row and job number within
+    an int32. Otherwise the per-pair instance runs."""
+    K = -(-nout // L)
+    return (nfft & (nfft - 1) == 0 and nfft >= 8192 and C % 8 == 0
+            and x_ptr % 16 == 0 and y_ptr % 16 == 0
+            and K * L + nfft < 2 ** 31 and C // 8 * K < 2 ** 31)
 
 
 def os_fft(u, v, nfft, L, nout):
@@ -195,10 +220,13 @@ def osconv(u, v, nfft, out_len=None):
     Hp = _spectrum(v, nfft)
     wn, tw2 = _tables(nfft, xc.device)
     y = torch.empty((nout, C), dtype=torch.float32, device=xc.device)
+    L = _advance(nfft, nv)
+    cluster = cluster_route(nfft, C, nout, L, xc.data_ptr(), y.data_ptr())
     f = _build.entry("osconv", "dsptpu_osconv", _ARGTYPES)
     err = f(xc.data_ptr(), Hp.data_ptr(), wn.data_ptr(), tw2.data_ptr(),
-            y.data_ptr(), n, C, nfft, nfft & -nfft, _advance(nfft, nv),
-            nout, _build.stream_of(xc))
+            y.data_ptr(), n, C, nfft, nfft & -nfft, L, nout, int(cluster),
+            _build.stream_of(xc))
     _build.check("osconv", err, "osconv kernel launch")
     launches["osconv"] += 1
+    count("route.osconv.cluster" if cluster else "route.osconv.pair")
     return y[:, 0] if vec else y

@@ -330,3 +330,140 @@ def test_k4_kernel_arithmetic_is_circular_convolution(nfft):
     circ = lambda s: np.real(np.fft.ifft(np.fft.fft(s) * np.fft.fft(v, nfft)))
     check(y.real, circ(xa), 1e-12)
     check(y.imag, circ(xb), 1e-12)
+
+
+def _first_pass_slot(M, t, i):
+    """csrc/osconv.cu's slot_base<M, 1>(t) + slot_off<M, 1>(i) at G = 1:
+    the exchange slot from which thread t loads register i."""
+    R, _, _ = tos._geometry(M)
+    T = M // R
+    S1 = T                                    # stride(1) = M / R
+    if S1 >= R:
+        base = t + t // R                     # hi = 0, lo = t
+        off = i * (S1 + S1 // R)
+    else:
+        base = t
+        off = i * S1 + i * S1 // R
+    return base + off
+
+
+def _emulate_k4_cluster(n, C, nv, nfft, nout):
+    """The index maps of csrc/osconv.cu's cluster instance, in numpy, over
+    every job (frame f, channel group q) of a call: the staging (rank k
+    reads frame rows [k M/4, (k + 1) M/4), lane pairs on a row, lane t
+    16 bytes, pairs 2 (t & 1) and 2 (t & 1) + 1 of the group, into the
+    owners' buffers at slot p + p / R), each owner thread's register loads
+    (slot_base<M, 1> + slot_off<M, 1>) and the gather (rank k stores
+    output rows [k L/4, (k + 1) L/4), lane j of a warp row (j >> 5) 16 +
+    (j & 15), half (j >> 4) & 1). Every word is tagged by its source:
+    1 + row * C + channel of x, 0 outside [0, n). Returns, per job, what
+    each owner's registers hold and the tags of the stored outputs."""
+    M = nfft
+    R, _, _ = tos._geometry(M)
+    T = THREADS = M // R
+    QR = M // 4
+    LOADS = 2 * QR // THREADS
+    L = tos._advance(nfft, nv)
+    S = M - L
+    K = -(-nout // L)
+    groups = C // 8
+    Lq = L // 4
+    y = np.zeros((nout, C), np.int64)
+    stores = np.zeros((nout, C), np.int64)
+    regs = []
+    t = np.arange(THREADS)
+    u = np.arange(LOADS)[:, None]
+    for J in range(groups * K):
+        f, q = J // groups, J % groups
+        buf = np.zeros((4, M + M // R, 2), np.int64)
+        hits = np.zeros((4, M + M // R), np.int64)
+        for rank in range(4):
+            hh = t & 1
+            pl = (u * THREADS + t) >> 1                 # (LOADS, THREADS)
+            p = rank * QR + pl
+            g = f * L - S + p
+            inside = (g >= 0) & (g < n)
+            for k in range(2):                          # o0, o1
+                owner = np.broadcast_to(2 * hh + k, p.shape)
+                for part in range(2):
+                    c = 8 * q + 4 * hh + 2 * k + part
+                    buf[owner, p + p // R, part] = np.where(
+                        inside, 1 + g * C + c, 0)
+                np.add.at(hits, (owner, p + p // R), 1)
+        got = np.stack([buf[:, _first_pass_slot(M, t, i)]
+                        for i in range(R)], 1)          # (4, R, T, 2)
+        regs.append((f, q, got, hits))
+        # the owners' outputs in register order: row i T + t at i T + t
+        out = got.transpose(0, 2, 1, 3)                 # (4, T, R, 2)
+        frame = np.zeros((4, M, 2), np.int64)
+        frame[:, (np.arange(R)[None, :] * T + t[:, None])] = out
+        for rank in range(4):
+            j = np.arange(2 * Lq)
+            row = (j >> 5) * 16 + (j & 15)
+            hh = (j >> 4) & 1
+            r0 = rank * Lq
+            o = f * L + r0 + row
+            ok = row < nout - f * L - r0
+            for k in range(2):
+                for part in range(2):
+                    c = 8 * q + 4 * hh[ok] + 2 * k + part
+                    y[o[ok], c] = frame[2 * hh[ok] + k, S + r0 + row[ok],
+                                        part]
+                    np.add.at(stores, (o[ok], c), 1)
+    return L, S, regs, y, stores
+
+
+@pytest.mark.parametrize("out", ["full", "n"])
+@pytest.mark.parametrize("C", [8, 16, 24, 32])
+@pytest.mark.parametrize("nfft", [8192, 16384])
+def test_k4_cluster_index_maps(nfft, C, out):
+    """Every (row, channel) of every frame lands exactly once in the
+    first-pass register of its owner that reads it (thread t, register i:
+    frame row i T + t, pair 4q + owner), rows outside [0, n) read zero,
+    and every valid output is stored exactly once, from the frame row and
+    channel it belongs to."""
+    n, nv = 2 * nfft + 1237, 4096 if nfft == 16384 else 1025
+    nout = n + nv - 1 if out == "full" else n
+    L, S, regs, y, stores = _emulate_k4_cluster(n, C, nv, nfft, nout)
+    M = nfft
+    R, _, _ = tos._geometry(M)
+    T = M // R
+    rows = np.arange(R)[:, None] * T + np.arange(T)[None, :]
+    for f, q, got, hits in regs:
+        slots = rows + rows // R
+        assert (hits[:, slots] == 1).all() and hits.sum() == 4 * M
+        g = f * L - S + rows
+        inside = (g >= 0) & (g < n)
+        for k in range(4):
+            for part in range(2):
+                c = 8 * q + 2 * k + part
+                want = np.where(inside, 1 + g * C + c, 0)
+                assert np.array_equal(got[k, :, :, part], want)
+    assert (stores == 1).all()
+    o = np.arange(nout)[:, None]       # output o is frame row S + o - f L
+    assert np.array_equal(y, np.where(o < n, 1 + o * C + np.arange(C), 0))
+
+
+@pytest.mark.parametrize("nfft,C,xoff,yoff,nout,want", [
+    (16384, 16, 0, 0, 10_000_000, True),    # path A
+    (16384, 8, 0, 0, 70_000, True),
+    (8192, 24, 0, 0, 70_000, True),
+    (8192, 32, 0, 0, 70_000, True),
+    (16384, 1, 0, 0, 70_000, False),        # C % 8 != 0
+    (16384, 2, 0, 0, 70_000, False),
+    (16384, 3, 0, 0, 70_000, False),
+    (16384, 17, 0, 0, 70_000, False),
+    (8192, 12, 0, 0, 70_000, False),
+    (4096, 16, 0, 0, 70_000, False),        # M <= 4096: G >= 2
+    (2048, 32, 0, 0, 70_000, False),
+    (12288, 16, 0, 0, 70_000, False),       # odd m (3 x 4096)
+    (16256, 16, 0, 0, 70_000, False),       # odd m (127 x 128)
+    (16384, 16, 4, 0, 70_000, False),       # view at a 4-byte offset
+    (16384, 16, 8, 0, 70_000, False),
+    (16384, 16, 0, 4, 70_000, False),       # unaligned output
+    (16384, 16, 0, 0, 2 ** 31, False),      # frame rows past an int32
+])
+def test_k4_cluster_route_choice(nfft, C, xoff, yoff, nout, want):
+    L = tos._advance(nfft, 4096 if nfft >= 8192 else 127)
+    assert tos.cluster_route(nfft, C, nout, L, 1 << 20 | xoff,
+                             1 << 24 | yoff) == want

@@ -24,6 +24,7 @@ from dsptpu_torch import kernels
 from dsptpu_torch.filters.filt import _blockss, _cascade_ss, _stack_cascade
 from dsptpu_torch.kernels import (arbd, biir, fir, levinson, osconv, pfb2,
                                   stft, transpose)
+from dsptpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +173,65 @@ def test_osconv_kernel_matches_plain(dev, n, C, nv, nfft, out):
     want = osconv.osconv_reference(x, v, nfft,
                                    n + nv - 1 if out_len is None else n)
     check(got, want, 3e-5)
+
+
+def osconv_routed(route, call):
+    """call() (one K4 launch), which must count `route.osconv.<route>`."""
+    key = f"route.osconv.{route}"
+    before = profiling.counters().get(key, 0)
+    out = launched_once("osconv", call)
+    assert profiling.counters().get(key, 0) == before + 1
+    return out
+
+
+def osconv_by_pairs(x, v, nfft, out_len):
+    """K4 on each two-channel slice (the per-pair instance), side by side."""
+    return torch.cat([osconv.osconv(x[:, c:c + 2].contiguous(), v, nfft,
+                                    out_len)
+                      for c in range(0, x.shape[1], 2)], 1)
+
+
+@pytest.mark.parametrize("out", ["full", "n"])
+@pytest.mark.parametrize("C", [8, 24, 32])
+@pytest.mark.parametrize("nfft,nv", [(8192, 7169), (16384, 4096)])
+def test_osconv_cluster_route_matches_pairs(dev, nfft, nv, C, out):
+    """nfft 8192 and 16384 at C % 8 == 0 take the cluster instance: within
+    3e-5 of the plain version and bit for bit the per-pair instance on
+    each two-channel slice."""
+    n = 2 * nfft + 101
+    x, v = randn(dev, n, C, seed=C), randn(dev, nv, seed=nv)
+    out_len = n + nv - 1 if out == "full" else n
+    got = osconv_routed("cluster",
+                        lambda: osconv.osconv(x, v, nfft, out_len))
+    check(got, osconv.osconv_reference(x, v, nfft, out_len), 3e-5)
+    assert torch.equal(got, osconv_by_pairs(x, v, nfft, out_len))
+
+
+@pytest.mark.parametrize("nfft,C,off", [(16384, 16, 1), (16384, 16, 2),
+                                        (8192, 8, 3), (16384, 12, 0),
+                                        (4096, 16, 0), (16384, 2, 0)])
+def test_osconv_other_shapes_take_pair_route(dev, nfft, C, off):
+    """Views at a 4-, 8- or 12-byte offset, C % 8 != 0 and nfft 4096 run
+    the per-pair instance, within 3e-5 of the plain version."""
+    n = 2 * nfft + 77
+    x = randn(dev, n * C + off, seed=off).view(-1)[off:].view(n, C)
+    v = randn(dev, 4096 if nfft == 16384 else 1025, seed=1)
+    got = osconv_routed("pair", lambda: osconv.osconv(x, v, nfft))
+    check(got, osconv.osconv_reference(x, v, nfft, n + v.shape[0] - 1),
+          3e-5)
+
+
+def test_fftfilt_entry_takes_cluster_route(dev):
+    """Path A's call at 16 channels is one K4 launch on the cluster
+    route."""
+    fwd, (x,) = dsptpu_torch.fftfilt_entry(device="cuda", n=70001,
+                                           channels=16)
+    kernels.reset_launches()
+    y = fwd(x)
+    assert kernels.launch_counts()["osconv"] == 1
+    assert {k: c for k, c in profiling.counters().items()
+            if k.startswith("route.osconv.")} == {"route.osconv.cluster": 1}
+    check(y, fwd(x.double()), 3e-5)
 
 
 @pytest.mark.parametrize("n_eff", [None, "aligned"])

@@ -5,18 +5,21 @@ dsptpu_torch package under ROOT (default: this checkout):
     python3 tools/k4_k2_ab.py [ROOT]
 
 Builds ROOT's kernels, then times on the card (CUDA-event medians) K4 at
-path A's shapes (16 x 10,000,000 float32, 4096 taps, nfft 16384), K2
-forward at the main path's shapes (the 8th-order Butterworth cascade
-over 1,000,000 x 64, as sosfilt builds it) and K2 forward and reverse
-(n_eff) at path B's (filtfilt's two passes over the same stream), the
+path A's shapes (16 x 10,000,000 float32, 4096 taps, nfft 16384) with
+its device time by kernel (torch.profiler over 10 calls: the instance's
+name shows its route), K2 forward at the main path's shapes (the
+8th-order Butterworth cascade over 1,000,000 x 64, as sosfilt builds
+it) and K2 forward and reverse (n_eff) at path B's (filtfilt's two
+passes over the same stream), the
 device time of K2's output stage in one forward call (torch.profiler:
 the kernels whose name holds "output"), K2's device time per
 `__global__` kernel of csrc/biir.cu in one call of each of those three
 passes (so that builds with different kernels read side by side) and
 their sum, and entry(), fftfilt_entry() and filtfilt_lpc_entry() end to
 end. Prints the card (nvidia-smi name and power limit), the `-Xptxas
--v` lines of biir.cu and one JSON line. To compare two checkouts, run
-it on both in one call, in the order parent, change, change, parent.
+-v` lines of biir.cu and osconv.cu and one JSON line. To compare two
+checkouts, run it on both in one call, in the order parent, change,
+change, parent.
 """
 
 import importlib
@@ -50,8 +53,9 @@ def main():
     cascade = getattr(filt, "_cascade_ss", None) or (
         lambda sos, g: filt._blockss(*filt._stack_cascade(sos, g)))
     res = {"root": root}
-    for line in ptxas_lines("biir"):
-        print(f"biir ptxas: {line}", flush=True)
+    for source in ("biir", "osconv"):
+        for line in ptxas_lines(source):
+            print(f"{source} ptxas: {line}", flush=True)
 
     forward, (x,) = dsptpu_torch.fftfilt_entry(device="cuda")
     h = torch.as_tensor(fftfilt_taps(), device=dev)
@@ -59,6 +63,8 @@ def main():
     nfft = optimal_os_nfft(n, h.shape[0])
     res["k4_ms"] = time_ms(lambda: osconv.osconv(x, h, nfft, n),
                           reps=10, warmup=2)
+    res["k4_device_ms"] = device_ms_by_kernel(
+        lambda: osconv.osconv(x, h, nfft, n), "osconv", calls=10)
     res["path_a_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
     del forward, x
     torch.cuda.empty_cache()
