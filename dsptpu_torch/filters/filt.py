@@ -10,6 +10,11 @@ impulse response (F), the row's effect on the state is a (p, V) product
 tables are host float64 design-time constants. A whole SOS cascade is
 ONE pass through the stacked 2*nsec state (_stack_cascade).
 
+A system is found once, by its design (a cascade's sections and gain,
+or a normalised (b, a): _design_ss); every table derived from it lives
+on it (_BlockSS.table), keyed only by what is not the system (device,
+geometry, step state), and goes when the `blockss` cache drops it.
+
 On a float32 signal with n >= 512 and p <= 32 the pass is K2, the
 hand-written kernel of kernels/biir.py; otherwise it runs as torch
 matrix products plus the boundary recurrence of `_affine_rec`.
@@ -31,7 +36,7 @@ import torch.nn.functional as F
 from ..ops import dspbase
 from ..ops.dspbase import _as_1d, _flatten_channels, _float_type
 from ..utils.device import as_tensor, full_f32
-from ..utils.profiling import span, spanned, table_cache
+from ..utils.profiling import count, span, spanned, table_cache
 from .coefficients import (PolynomialRatio, Biquad, SecondOrderSections,
                            ZeroPoleGain, as_sos, coefb, coefa)
 
@@ -67,7 +72,6 @@ def _affine_scan(M, u, z0):
 _REC_BLOCK = 128
 
 
-@table_cache("rec", lambda A_np, S: (A_np.tobytes(), A_np.shape[0], S), 256)
 def _rec_tables(A_np, S):
     """Host float64 tables for the blocked vector recurrence with
     transition A (p x p): T2 the (S*p, S*p) lower-triangular
@@ -91,16 +95,17 @@ def _const(a, like):
 
 
 @full_f32()
-def _affine_rec(A_np, U, z0):
-    """Solve z_b = A z_{b-1} + U_b, b = 0..B-1, z_{-1} = z0.
+def _affine_rec(ss, U, z0):
+    """Solve z_b = A z_{b-1} + U_b, b = 0..B-1, z_{-1} = z0, A = ss.AV.
 
-    A_np: host (p, p) float64 transition; U: (C, B, p) injected vectors;
-    z0: (p, C). Returns Z (C, B, p), the state AFTER each step: one
-    (C*Bo, S*p) @ (S*p, S*p) product for within-block prefixes, a scan
-    over block boundary states, and a (S, p, p) reconstruct einsum."""
+    U: (C, B, p) injected vectors; z0: (p, C). Returns Z (C, B, p), the
+    state AFTER each step: one (C*Bo, S*p) @ (S*p, S*p) product for
+    within-block prefixes, a scan over block boundary states, and a
+    (S, p, p) reconstruct einsum."""
+    A_np = ss.AV
     C, B, p = U.shape
     S = min(_REC_BLOCK, max(8, B))
-    T2, AS, P1 = _rec_tables(A_np, S)
+    T2, AS, P1 = ss.table("rec", (S,), _rec_tables, A_np, S)
     U = U.clone()
     U[:, 0] += (_const(A_np, U) @ z0).T
 
@@ -138,10 +143,11 @@ class _BlockSS:
     samples. All float64 numpy; see _blockss_apply. `sections`: for a
     stacked SOS cascade (_cascade_ss), its (nsec, 5) [b0 b1 b2 a1 a2]
     rows and gain g, which K2's output stage runs per row instead of F;
-    None for any other system."""
+    None for any other system. `tables`: every table derived from the
+    system, built on first use (table)."""
 
     __slots__ = ("V", "p", "A", "c", "F", "G", "K", "AV", "powers",
-                 "sections")
+                 "sections", "tables", "__weakref__")
 
     def __init__(self, A, c, w, d, V, sections=None):
         p = A.shape[0]
@@ -164,14 +170,33 @@ class _BlockSS:
         self.F, self.G, self.K, self.AV = F, G, K, powers[V]
         self.powers = powers
         self.sections = sections
+        self.tables = {}
+
+    def table(self, name, key, build, *args):
+        """The table `name` at `key` derived from this system:
+        build(*args) on its first lookup, then kept here. Each lookup
+        counts `table.<name>.hit` or `table.<name>.miss`."""
+        k = (name,) + key
+        hit = k in self.tables
+        count(f"table.{name}.{'hit' if hit else 'miss'}")
+        if not hit:
+            self.tables[k] = build(*args)
+        return self.tables[k]
 
 
-@table_cache("blockss", lambda A, c, w, d, sections=None: (
-    A.tobytes(), c.tobytes(), w.tobytes(), float(d), A.shape[0],
-    None if sections is None
-    else (sections[0].tobytes(), float(sections[1]))), 256)
 def _blockss(A, c, w, d, sections=None):
+    """A new system (no cache: _design_ss finds a design's system once)."""
     return _BlockSS(A, c, w, d, _BLOCKSS_V, sections)
+
+
+@table_cache("blockss", lambda rows, g=None: (rows.tobytes(), g), 256)
+def _design_ss(rows, g=None):
+    """The system of one design: a biquad cascade's (nsec, 5) float64
+    rows with gain g, or (g None) one normalised section's (2, p + 1)
+    rows [bp; ap]. _stack_cascade and _single_ss run only here."""
+    if g is None:
+        return _blockss(*_single_ss(*rows))
+    return _blockss(*_stack_cascade(rows, g), sections=(rows, g))
 
 
 def _kernel_iir_ok(ss, n, dtype):
@@ -214,7 +239,7 @@ def _blockss_apply(ss, x, z0, need_state=True, reverse=False):
     X = xT.reshape(C * B, V)
     Ylocal = X @ _const(ss.F.T, x)
     U = (X @ _const(ss.K.T, x)).reshape(C, B, p)
-    Z = _affine_rec(ss.AV, U, z0)                        # (C, B, p)
+    Z = _affine_rec(ss, U, z0)                           # (C, B, p)
     Zstart = torch.cat([z0.T[:, None, :], Z[:, :-1]], 1)
     Y = Ylocal.reshape(C, B, V) + torch.einsum(
         "cbp,vp->cbv", Zstart, _const(ss.G, x))
@@ -282,18 +307,10 @@ def _stack_cascade(sos, g=1.0):
 
 
 def _cascade_ss(sos, g=1.0):
-    """The block state-space tables of a biquad cascade with gain g
-    (_stack_cascade), carrying its sections for K2's SOS output stage."""
-    sos = np.ascontiguousarray(sos, dtype=np.float64).reshape(-1, 5)
-    return _blockss(*_stack_cascade(sos, float(g)),
-                    sections=(sos, float(g)))
-
-
-def _affine_apply(bp, ap, x, z0):
-    """Transposed DF-II of a normalized (a[0]==1) filter over x (n, C)
-    with initial state z0 (p, C); returns (y, z_final). bp/ap are host
-    numpy design-time constants; see _blockss_apply."""
-    return _blockss_apply(_blockss(*_single_ss(bp, ap)), x, z0)
+    """The system of a biquad cascade with gain g (_stack_cascade),
+    carrying a copy of its sections for K2's SOS output stage."""
+    return _design_ss(np.array(sos, dtype=np.float64).reshape(-1, 5),
+                      float(g))
 
 
 # ---------------------------------------------------------------------------
@@ -527,10 +544,15 @@ def _filtfilt_fir(b, x):
     return restore(y[2 * nb - 2:])
 
 
-def _filtfilt_passes(ss, zi_np, flat, pad):
-    """Two block state-space passes over the extended signal: forward
-    from zi * ext[0], reverse from zi * y1[-1]. flat (n, C)."""
+def _filtfilt_ss(ss, zi_np, flat, pad):
+    """filtfilt of flat (n, C) by the system ss from its step state zi_np:
+    the kernel route where K2's gate holds on the input's own type, else
+    two block state-space passes over the extended signal, forward from
+    zi * ext[0], reverse from zi * y1[-1]."""
     n = flat.shape[0]
+    if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
+        return _filtfilt_kernel(ss, zi_np, flat, pad, n)
+    flat = flat.to(_float_type(flat.dtype))
     z = _const(zi_np, flat)
     ext = _extrapolate(flat, pad)
     y1, _ = _blockss_apply(ss, ext, z[:, None] * ext[0][None, :],
@@ -546,14 +568,8 @@ def _iir_filtfilt(b, a, x):
     pad = min(3 * (max(len(a), len(b)) - 1), x.shape[0] - 1)
     zi, bp, ap = filt_stepstate(b, a)
     flat, restore = _flatten_channels(x)
-    n = flat.shape[0]
-    ss = _blockss(*_single_ss(bp, ap))
-    # gate on the input's own type: the kernel route is float32 in,
-    # float32 out
-    if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
-        return restore(_filtfilt_kernel(ss, np.asarray(zi), flat, pad, n))
-    return restore(_filtfilt_passes(ss, zi, flat.to(_float_type(
-        flat.dtype)), pad))
+    ss = _design_ss(np.array([bp, ap]))
+    return restore(_filtfilt_ss(ss, zi, flat, pad))
 
 
 def _filtfilt_sos(f, x, pad=None):
@@ -566,37 +582,24 @@ def _filtfilt_sos(f, x, pad=None):
             pad = 6 * nsec
         pad = min(pad, x.shape[0] - 1)
         flat, restore = _flatten_channels(x)
-        n = flat.shape[0]
         # stacked-state rows ordered (z1_0, z2_0, z1_1, ...) as in _sosfilt
         ss = _cascade_ss(sos, g)
-        zi_np = np.swapaxes(filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec)
-    if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
-        return restore(_filtfilt_kernel(ss, zi_np, flat, pad, n))
-    return restore(_filtfilt_passes(ss, zi_np, flat.to(_float_type(
-        flat.dtype)), pad))
+        zi_np = ss.table("zstep", (), lambda: np.swapaxes(
+            filt_stepstate_sos(sos), 0, 1).reshape(2 * nsec))
+    return restore(_filtfilt_ss(ss, zi_np, flat, pad))
 
 
-def _ss_key(ss):
-    """The key of a block state-space system's tables."""
-    return ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.A.tobytes()
-
-
-@table_cache("ff_edge", lambda ss, pad, q, tl: (*_ss_key(ss), pad, q, tl),
-             64)
-def _ff_edge_tables(ss, pad, q, tl):
-    """Host float64 tables of the kernel route's analytic edges: the
-    front extension folded into the forward pass's entering state
-    (Apad, Kf); the reverse pass's entering state at the aligned
-    boundary from [tail of y1, back-extension outputs] (Aq, Krq); and
-    the closed-form anti-causal outputs over the unaligned tail
-    (Fr, Gr)."""
-    p = ss.p
+def _ff_edge_tables(ss, zst_np, pad, q, tl, device):
+    """The kernel route's analytic edges, built in float64 on the host
+    and uploaded as float32 to `device`: the front extension folded into
+    the forward pass's entering state (Apad, Kf); the reverse pass's
+    entering state at the aligned boundary from [tail of y1,
+    back-extension outputs] (Aq, Krq); the closed-form anti-causal
+    outputs over the unaligned tail (Fr, Gr); the step state zst_np."""
     A, c, w, d = ss.A, ss.c, ss.G[0], float(ss.F[0, 0])
-    mx = max(pad, q) + 1
-    pw = np.empty((mx, p, p))
-    pw[0] = np.eye(p)
-    for j in range(1, mx):
-        pw[j] = A @ pw[j - 1]
+    pw = list(ss.powers)                    # A^0 .. A^max(pad, q)
+    while len(pw) <= max(pad, q):
+        pw.append(A @ pw[-1])
     Apad = pw[pad]
     Kf = np.stack([pw[pad - 1 - j] @ c for j in range(pad)], axis=1)
     Aq = pw[q]
@@ -605,25 +608,15 @@ def _ff_edge_tables(ss, pad, q, tl):
     # d*y1[t] + w' z_before(t), z_before(t) = A^{q-1-i} z0
     #   + sum_{j>i} A^{j-i-1} c seg[j]  (i = t - m)
     Gr = (np.stack([w @ pw[q - 1 - i] for i in range(tl)], axis=0)
-          if tl else np.zeros((0, p)))
+          if tl else np.zeros((0, ss.p)))
     wAc = np.array([w @ (pw[j] @ c) for j in range(q)])
     Fr = np.zeros((tl, q))
     for i in range(tl):
         Fr[i, i] = d
         if i + 1 < q:
             Fr[i, i + 1:] = wAc[: q - i - 1]
-    return Apad, Kf, Aq, Krq, Fr, Gr
-
-
-@table_cache("ff_dev", lambda ss, zst_np, pad, q, tl, device: (
-    *_ss_key(ss), np.asarray(zst_np, np.float64).tobytes(), pad, q, tl,
-    str(device)), 64)
-def _ff_dev_tables(ss, zst_np, pad, q, tl, device):
-    """_ff_edge_tables and the step state as float32 tensors on
-    `device`, uploaded once per (filter, geometry, device)."""
-    host = _ff_edge_tables(ss, pad, q, tl) + (np.asarray(zst_np),)
     return tuple(torch.as_tensor(np.asarray(t, np.float32), device=device)
-                 for t in host)
+                 for t in (Apad, Kf, Aq, Krq, Fr, Gr, zst_np))
 
 
 @full_f32()
@@ -643,8 +636,11 @@ def _filtfilt_kernel(ss, zst_np, x, pad, n):
     q = n - m + pad
     tl = n - m
     with span("filtfilt.tables"):
-        Apad, Kf, Aq, Krq, Fr, Gr, zst = _ff_dev_tables(ss, zst_np, pad, q,
-                                                         tl, x.device)
+        # the step state scales with a[0] on the (b, a) route; at most
+        # 128 geometries (tl) a pad
+        Apad, Kf, Aq, Krq, Fr, Gr, zst = ss.table(
+            "ff_dev", (zst_np.tobytes(), pad, q, tl, str(x.device)),
+            _ff_edge_tables, ss, zst_np, pad, q, tl, x.device)
     with span("filtfilt.edges"):
         front = 2 * x[0] - x[1: pad + 1].flip(0)        # (pad, C)
         z_e = Apad @ (zst[:, None] * front[0][None, :]) + Kf @ front

@@ -40,7 +40,7 @@ import torch
 
 from . import _build
 from ..utils.device import full_f32
-from ..utils.profiling import spanned, table_cache
+from ..utils.profiling import spanned
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
            "launches"]
@@ -65,17 +65,18 @@ def _padded_p(p):
     return 8 if p <= 8 else (16 if p <= 16 else 32)
 
 
-@table_cache("biir", lambda ss, device: (
-    ss.F.tobytes(), ss.K.tobytes(), ss.G.tobytes(), ss.AV.tobytes(),
-    str(device), None if ss.sections is None
-    else (ss.sections[0].tobytes(), ss.sections[1])), 128)
 def _tables(ss, device):
     """float64 host tables cast to float32, as dsptpu's _dev_tables
     builds them (forward direction), on `device`: h (V,) = F[:, 0] (F is
     Toeplitz in h), Kt = K' (V, P), Gt = G (V, P), AV (P, P) and
     AV^_CHUNK (P, P), zero-padded from p to P in {8, 16, 32}; then, for
     a system that carries its sections, their rows [b0 b1 b2 a1 a2] and
-    the gain as one (5 nsec + 1,) vector (else None)."""
+    the gain as one (5 nsec + 1,) vector (else None). Built once a
+    device and kept on the system."""
+    return ss.table("biir", (str(device),), _build_tables, ss, device)
+
+
+def _build_tables(ss, device):
     sec = ss.sections
     P = _padded_p(ss.p)
 
@@ -89,9 +90,8 @@ def _tables(ss, device):
             pad(np.linalg.matrix_power(ss.AV, _CHUNK), (P, P)))
     if sec is not None:
         host += (np.append(sec[0].reshape(-1), sec[1]),)
-    hit = tuple(torch.as_tensor(t.astype(np.float32), device=device)
-                for t in host)
-    return hit if sec is not None else hit + (None,)
+    return tuple(torch.as_tensor(t.astype(np.float32), device=device)
+                 for t in host) + ((None,) if sec is None else ())
 
 
 @full_f32()
@@ -102,10 +102,10 @@ def _advance_tail(ss, zrow, x, n):
     m = n % _V
     if not m:
         return zrow
-    Kp = (ss.powers[m - 1::-1] @ ss.c).T                # (p, m)
     dt = zrow.dtype
-    pm = torch.as_tensor(ss.powers[m], device=x.device).to(dt)
-    Kpt = torch.as_tensor(Kp.T, device=x.device).to(dt)
+    pm, Kpt = ss.table("tail", (m, str(x.device), dt), lambda: tuple(
+        torch.as_tensor(t, device=x.device).to(dt)
+        for t in (ss.powers[m], ss.powers[m - 1::-1] @ ss.c)))
     return pm @ zrow + (x[n - m:].to(dt).T @ Kpt).T
 
 

@@ -185,7 +185,7 @@ def _filt_iir(b, a, x, si=None):
         if len(roots) == 0 or np.max(np.abs(roots)) < 1.0 - 1e-9:
             fast = (bh, ah)
     if fast is not None:
-        from ..filters.filt import _affine_apply
+        from ..filters.filt import _blockss_apply, _design_ss
         bh, ah = fast
         scale = ah[0]
         bp = np.zeros(sz + 1)
@@ -196,7 +196,8 @@ def _filt_iir(b, a, x, si=None):
         z0 = (torch.zeros((sz, flat.shape[1]), dtype=dtype, device=x.device)
               if si is None else
               as_tensor(si, x.device).to(dtype).reshape(sz, flat.shape[1]))
-        y, zf = _affine_apply(bp, ap, flat, z0)
+        # the transposed DF-II system of the normalized (bp, ap)
+        y, zf = _blockss_apply(_design_ss(np.array([bp, ap])), flat, z0)
         y = restore(y)
         if si is not None:
             return y, zf.reshape((sz,) + tuple(x.shape[1:]))

@@ -9,7 +9,10 @@ float32 or float64 arrays. Tolerances: max|d| <= 1e-10 max|ref| in
 float64, <= 1e-4 max|ref| in float32 (bench.py's IIR bound: the
 recurrence accumulates f32 error)."""
 
+import gc
+import importlib
 import math
+import weakref
 
 import numpy as np
 import pytest
@@ -26,6 +29,10 @@ from dsptpu_torch.convert import (sos_from_numpy, state_from_numpy,
                                   zpk_from_numpy)
 from dsptpu_torch.filters.filt import _blockss, _cascade_ss, _stack_cascade
 from dsptpu_torch.kernels import biir as tbiir
+from dsptpu_torch.utils import profiling
+
+# the module, not the function that filters/__init__ binds to `filt`
+filt_mod = importlib.import_module("dsptpu_torch.filters.filt")
 
 TOL = {np.float64: 1e-10, np.float32: 1e-4}
 
@@ -85,7 +92,7 @@ def test_sosfilt_float32_section_array_like_entry():
 
 
 @pytest.mark.parametrize("n,dtype,with_si", [
-    (3000, np.float32, False),   # _affine_apply -> K2 need_state (plain)
+    (3000, np.float32, False),   # filt(b, a) -> K2 need_state (plain)
     (3000, np.float32, True),
     (2500, np.float64, True),
 ])
@@ -439,3 +446,98 @@ def test_k2_three_launch_walk_emulated(mode, order, n, C, route):
     for gt, pl, w in zip(got, plain, want):
         check(gt, pl.numpy(), 1e-4)
         check(gt, w, 1e-4)
+
+
+def _table_counts():
+    """{table name: (hits, misses)} of the counters since the last reset."""
+    c = profiling.counters()
+    names = {k.split(".")[1] for k in c if k.startswith("table.")}
+    return {t: (c.get(f"table.{t}.hit", 0), c.get(f"table.{t}.miss", 0))
+            for t in names}
+
+
+def test_sosfilt_finds_its_system_once_by_its_design(monkeypatch):
+    """The blockss cache is keyed by the design: two sosfilt calls with
+    equal sections and gain run _stack_cascade once and share a system;
+    another gain is another system. Each output held to dsptpu."""
+    runs = []
+    stack = filt_mod._stack_cascade
+    monkeypatch.setattr(filt_mod, "_stack_cascade",
+                        lambda *a: runs.append(a[1]) or stack(*a))
+    filt_mod._design_ss.entries.clear()
+    sos = butter_sos(8, 0.2)
+    arr, g = sos.sos_array(), sos.g
+    x = np.random.default_rng(21).standard_normal((2000, 2)).astype(
+        np.float32)
+    want = np.asarray(dsptpu.sosfilt(sos, jnp.asarray(x)))
+    for k in (1.0, 1.0, 2.0):
+        got = dsptpu_torch.sosfilt(sos_from_numpy(arr, k * g),
+                                   torch.as_tensor(x))
+        check(got, k * want, 1e-4)
+    assert runs == [g, 2.0 * g]
+    assert _cascade_ss(arr, g) is _cascade_ss(arr.copy(), g)
+    assert _cascade_ss(arr, 2.0 * g) is not _cascade_ss(arr, g)
+
+
+@pytest.mark.parametrize("which", ["chain", "path_b"])
+def test_second_entry_call_finds_the_same_tables(which):
+    """A second chain or path B call on the CPU finds its one system and
+    every table on it again: the very same tensors, hits only, outputs
+    bit for bit the first call's, which is held to dsptpu."""
+    import jax
+    filt_mod._design_ss.entries.clear()
+    if which == "chain":
+        nfft = 256
+        fwd, (xt,) = dsptpu_torch.entry(device="cpu", n=32768, channels=2,
+                                        nfft=nfft)
+        taps, sos, win = dsptpu_torch.pipeline.chain_params(nfft=nfft)
+        x = jnp.asarray(xt.numpy())
+        y = dsptpu.sosfilt(jnp.asarray(sos),
+                           dsptpu.filt(jnp.asarray(taps), x))
+        want = (dsptpu.power(dsptpu.welch_pgram(y, nfft, nfft // 2,
+                                                window=jnp.asarray(win))),
+                dsptpu.stft(y, nfft, nfft // 2, window=jnp.asarray(win),
+                            psdonly=True))
+    else:
+        fwd, (xt,) = dsptpu_torch.filtfilt_lpc_entry(device="cpu",
+                                                     n=51200, channels=1)
+        f = jax_as_sos(dsptpu.digitalfilter(dsptpu.Lowpass(0.2),
+                                            dsptpu.Butterworth(8)))
+        want = (jax.jit(lambda v: dsptpu.filtfilt(f, v))(
+            jnp.asarray(xt.numpy())),)
+    first = fwd(xt)
+    for got, w in zip(first, want):
+        check(got, w, 1e-4)
+    (ss,) = filt_mod._design_ss.entries.values()
+    tables = dict(ss.tables)
+    profiling.reset()
+    second = fwd(xt)
+    assert list(filt_mod._design_ss.entries.values()) == [ss]
+    assert ss.tables.keys() == tables.keys()
+    assert all(ss.tables[k] is v for k, v in tables.items())
+    counts = _table_counts()
+    assert counts["blockss"] == (1, 0) and counts["biir"][0] > 0
+    assert all(miss == 0 for _, miss in counts.values()), counts
+    leaves = (lambda o: [o[0], o[1]] if which == "chain"
+              else [o[0], *o[1]])
+    for a, b in zip(leaves(first), leaves(second)):
+        assert torch.equal(a, b)
+
+
+def test_dropped_system_takes_its_tables_with_it():
+    """When the blockss cache drops a system, nothing else holds it: a
+    weakref to it and to one of its K2 tables dies on collection."""
+    filt_mod._design_ss.entries.clear()
+    sos = butter_sos(4, 0.3)
+    x = np.random.default_rng(22).standard_normal((1500, 2)).astype(
+        np.float32)
+    got = dsptpu_torch.sosfilt(sos_from_numpy(sos.sos_array(), sos.g),
+                               torch.as_tensor(x))
+    check(got, dsptpu.sosfilt(sos, jnp.asarray(x)), 1e-4)
+    (ss,) = filt_mod._design_ss.entries.values()
+    assert ("biir", "cpu") in ss.tables
+    refs = weakref.ref(ss), weakref.ref(ss.tables[("biir", "cpu")][0])
+    del ss
+    filt_mod._design_ss.entries.clear()
+    gc.collect()
+    assert [r() for r in refs] == [None, None]

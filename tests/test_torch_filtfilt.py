@@ -13,6 +13,8 @@ K2's plain version on the kernel route. Tolerances: max|d| <= 1e-10
 max|ref| in float64, <= 1e-4 max|ref| in float32 (bench.py's filtfilt
 bound)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,10 @@ from dsptpu_torch.filters.filt import (_blockss, _blockss_apply,
                                        _stack_cascade, filt_stepstate,
                                        filt_stepstate_sos)
 from dsptpu_torch.kernels import biir as tbiir
+from dsptpu_torch.utils import profiling
+
+# the module, not the function that filters/__init__ binds to `filt`
+filt_mod = importlib.import_module("dsptpu_torch.filters.filt")
 
 TOL = {np.float64: 1e-10, np.float32: 1e-4}
 
@@ -219,3 +225,88 @@ def test_df2tfilter_initial_state_and_refusals():
                            si=jnp.asarray(si))
     x = np.random.default_rng(14).standard_normal((500, 3))
     check(f(torch.as_tensor(x)), jf(jnp.asarray(x)), 1e-10)
+
+
+def _misses():
+    """{table name: misses} of the table counters since the last reset
+    (0 for a table looked up only with hits)."""
+    c = profiling.counters()
+    return {k.split(".")[1]: c.get(k.rsplit(".", 1)[0] + ".miss", 0)
+            for k in c if k.startswith("table.")}
+
+
+def test_filtfilt_ba_step_states_by_a0_keep_their_own_edge_tables():
+    """(b, a) and (2b, 2a) normalise to one system, but the step state
+    scales with a[0], so the kernel route's edge tables (ff_dev) keep an
+    entry each on that system. Both held to dsptpu's (b, a) route (the
+    one filtfilt takes when root-finding fails)."""
+    from dsptpu.filters.filt import _iir_filtfilt as jax_iir_filtfilt
+    filt_mod._design_ss.entries.clear()
+    pr = dsptpu.filters.as_polynomial_ratio(butter(4, 0.3))
+    b, a = np.asarray(pr.b), np.asarray(pr.a)
+    x = np.random.default_rng(31).standard_normal((2000, 2)).astype(
+        np.float32)
+    for k in (1.0, 2.0):
+        got = filt_mod._iir_filtfilt(k * b, k * a, torch.as_tensor(x))
+        check(got, jax_iir_filtfilt(k * b, k * a, jnp.asarray(x)), 1e-4)
+    (ss,) = filt_mod._design_ss.entries.values()
+    ff = [k for k in ss.tables if k[0] == "ff_dev"]
+    assert len(ff) == 2 and ff[0][1] != ff[1][1]
+
+
+@pytest.mark.parametrize("route", ["sosfilt_si", "df2t_chunks",
+                                   "filtfilt_sos", "filtfilt_ba"])
+def test_table_miss_and_hit_calls_agree_bit_for_bit(route, monkeypatch):
+    """A call that builds its system's tables (K2's need_state tail for
+    streaming sosfilt and DF2TFilter chunks of 700, 1400 and 900 rows;
+    filtfilt's step state and edge tables on the cascade and the (b, a)
+    routes) and a call that finds them give the same output bit for bit,
+    held to dsptpu."""
+    zpk = butter(6, 0.25)
+    jsos = dsptpu.filters.as_sos(zpk)
+    rng = np.random.default_rng(32)
+    x = rng.standard_normal((3000, 2)).astype(np.float32)
+    si = rng.standard_normal((2, 3, 2)).astype(np.float32)
+    if route == "sosfilt_si":
+        built = "tail"
+        want = dsptpu.sosfilt(jsos, jnp.asarray(x), si=jnp.asarray(si))[0]
+
+        def run():
+            return dsptpu_torch.sosfilt(port_sos(zpk), torch.as_tensor(x),
+                                        si=torch.as_tensor(si))[0]
+    elif route == "df2t_chunks":
+        built = "tail"
+        want = dsptpu.DF2TFilter(jsos, (2,))(jnp.asarray(x))
+
+        def run():
+            f = dsptpu_torch.DF2TFilter(port_sos(zpk), (2,))
+            return torch.cat([f(torch.as_tensor(x[i:j])) for i, j in
+                              [(0, 700), (700, 2100), (2100, 3000)]])
+    elif route == "filtfilt_sos":
+        built = "zstep"
+        want = dsptpu.filtfilt(jsos, jnp.asarray(x))
+
+        def run():
+            return dsptpu_torch.filtfilt(port_sos(zpk), torch.as_tensor(x))
+    else:
+        from dsptpu.filters.filt import _iir_filtfilt as jax_iir_filtfilt
+        pr = dsptpu.filters.as_polynomial_ratio(zpk)
+        b, a = np.asarray(pr.b), np.asarray(pr.a)
+        built = "ff_dev"
+        want = jax_iir_filtfilt(b, a, jnp.asarray(x))
+
+        def no_roots(_):
+            raise np.linalg.LinAlgError("root-finding refused")
+        monkeypatch.setattr(filt_mod, "as_sos", no_roots)
+
+        def run():
+            return dsptpu_torch.filtfilt(b, a, torch.as_tensor(x))
+    filt_mod._design_ss.entries.clear()
+    profiling.reset()
+    miss = run()
+    assert _misses()[built] > 0
+    profiling.reset()
+    hit = run()
+    assert set(_misses().values()) == {0}
+    assert torch.equal(miss, hit)
+    check(hit, want, 1e-4)

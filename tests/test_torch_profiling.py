@@ -22,7 +22,7 @@ import torch
 
 from dsptpu.utils import profiling as jprof
 from dsptpu_torch import kernels, pipeline
-from dsptpu_torch.kernels import biir, stft
+from dsptpu_torch.kernels import stft
 from dsptpu_torch.utils import profiling
 
 
@@ -320,11 +320,11 @@ def _tree(recs):
 
 
 def _tables_used():
-    # the module, not the function that filters/__init__ binds to `filt`
+    # the module, not the function that filters/__init__ binds to `filt`;
+    # the blockss cache holds the filter systems, and with them every
+    # table derived from them
     filt_mod = importlib.import_module("dsptpu_torch.filters.filt")
-    return (filt_mod._blockss, filt_mod._ff_dev_tables,
-            filt_mod._ff_edge_tables, filt_mod._rec_tables, biir._tables,
-            stft._tables, stft._upload)
+    return (filt_mod._design_ss, stft._tables, stft._upload)
 
 
 CHAIN_TREE = {"entry": {None}, "filt": {"entry"}, "kernel.fir": {"filt"},
@@ -364,9 +364,10 @@ def test_entry_span_tree_and_table_hits(which, clean_ring):
             "filtfilt.edges", "kernel.biir", "filtfilt.edges",
             "kernel.biir", "filtfilt.edges", "frames", "lpc", "lpc.lags",
             "kernel.levinson"]
-        first = {"blockss": (0, 1), "ff_dev": (0, 1), "ff_edge": (0, 1),
+        first = {"blockss": (0, 1), "zstep": (0, 1), "ff_dev": (0, 1),
                  "biir": (1, 1)}
-        second = {"blockss": (1, 0), "ff_dev": (1, 0), "biir": (2, 0)}
+        second = {"blockss": (1, 0), "zstep": (1, 0), "ff_dev": (1, 0),
+                  "biir": (2, 0)}
     for t in _tables_used():
         t.entries.clear()
     profiling.tracing(True)
