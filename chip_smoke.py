@@ -785,11 +785,58 @@ def path_a(dev):
     return counts, [row]
 
 
+def two_cat_form(forward, x, launches):
+    """Path B's call forward(x) against the same call with filtfilt's
+    kernel route in its two-cat form (tests/torch_helpers.py:
+    filtfilt_two_cats: the back extension appended to x, the tail to the
+    reverse pass's output): outputs bit for bit, `launches` kernels a
+    call and two more in the two-cat form (torch.profiler, memcpy and
+    memset records left out), and one back read and one write into the
+    output a call (route.biir.back / .into)."""
+    import importlib
+    import torch
+    from dsptpu_torch.utils import profiling
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_helpers import filtfilt_two_cats
+    filt = importlib.import_module("dsptpu_torch.filters.filt")
+    route = filt._filtfilt_kernel
+
+    def kernels_a_call():
+        by = profiling.device_by_kernel(lambda: forward(x), calls=3, log=log,
+                                        exclude=("Memcpy", "Memset"))
+        return round(sum(v[1] for v in by.values()))
+    profiling.reset()
+    out = forward(x)
+    c = profiling.counters()
+    uses = (c.get("route.biir.back"), c.get("route.biir.into"))
+    got = kernels_a_call()
+    try:
+        filt._filtfilt_kernel = (lambda ss, zst, xf, pad, n:
+                                 filtfilt_two_cats(ss, zst, xf, pad))
+        ref = forward(x)
+        two = kernels_a_call()
+    finally:
+        filt._filtfilt_kernel = route
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in
+               zip((out[0], *out[1]), (ref[0], *ref[1])))
+    log(f"path B at {tuple(x.shape)}: outputs "
+        f"{'bit for bit' if same else 'NOT bit for bit'} the two-cat "
+        f"form's; {got} kernels a call (two-cat form {two}); "
+        f"route.biir.back / .into {uses}")
+    if not same or (got, two) != (launches, launches + 2) or uses != (1, 1):
+        raise AssertionError(f"path B at {tuple(x.shape)}: against the "
+                             f"two-cat form: bit for bit {same}, kernels "
+                             f"{got} / {two}, uses {uses}")
+
+
 def path_b(dev):
     """Path B at full width: K2's reverse pass with n_eff and K5 against
     their plain versions at the path's shapes, filtfilt_lpc_entry() with
-    its launch counts, its time, float32 against float64 on the card,
-    and the BASELINE's single-channel filtfilt."""
+    its launch counts, its time, float32 against float64 on the card, the
+    kernel route against its two-cat form at 1,000,000 x 64 and x 1, and
+    the BASELINE's single-channel filtfilt."""
     import torch
     import dsptpu_torch
     from dsptpu_torch import kernels
@@ -807,12 +854,15 @@ def path_b(dev):
     m = (n // 128) * 128
     log(f"path B: x ({n}, {C}) float32, {len(f.biquads)} sections "
         f"(p = {ss.p}), pad {pad}, reverse pass over n_eff = {m}")
-    # the reverse pass's input is the forward pass's output over n + pad
-    xe = torch.cat([x, x[n - 1 - pad: n - 1].flip(0)], 0)
+    # the forward pass reads the route's back extension from its own
+    # tensor; its output over n + pad is the reverse pass's input
+    back = 2 * x[-1] - x[n - 1 - pad: n - 1].flip(0)
     z0 = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (ss.p, C)).astype(np.float32), device=dev)
-    y1 = biir.blockss_filt(ss, xe, z0)
-    del xe
+    y1 = biir.blockss_filt(ss, x, z0, back=back)
+    compare("biir", y1, biir.blockss_reference(ss, x, z0, back=back),
+            "path B forward with back")
+    del back
     err_r = compare("biir_reverse",
                     biir.blockss_filt(ss, y1, z0, reverse=True, n_eff=m),
                     biir.blockss_reference(ss, y1, z0, reverse=True,
@@ -917,6 +967,10 @@ def path_b(dev):
     compare("levinson", a, a64, "path B lpc a vs float64")
     compare("levinson", e, e64, "path B lpc err vs float64")
     del y, y64
+    two_cat_form(forward, x, 32)
+    mono, (xm,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda", channels=1)
+    two_cat_form(mono, xm, 30)
+    del mono, xm
 
     # the BASELINE's own configuration: one channel, C = 1 the carry
     # pass's worst case

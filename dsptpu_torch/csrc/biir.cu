@@ -61,6 +61,13 @@
 // (F', K's columns and G's rows reversed: _dev_tables(reverse=True)), so
 // no table and no copy of the data is flipped.
 //
+// Back extension (filtfilt's forward pass, over its signal and then the
+// pad samples of its odd extension): a forward pass over n samples may
+// read the last n - nb from a second tensor `back` (the BACK instances of
+// stage_tile's two callers and of output_kernel), so that no caller
+// copies the whole signal to append them.  Without it (BACK false, the
+// chain's and every other caller's) the instances are the plain ones.
+//
 // Bound on an H100: 8 bytes of HBM traffic per sample (x in, y out).  The
 // cascade needs 5 multiply-adds per section per sample, far below the
 // bytes' time.  The chain moves x twice (steps 1 and 3), U (p floats a
@@ -150,9 +157,12 @@ struct Tiles {
 // TS ..), channels cbase .. cbase + cw - 1, into buffer ti % kStages of xs
 // as [r * rs + u * cw + c]; zeros past n and C.  Offsets within the tile
 // are 32-bit and found by shifts.  Commits one group of copies, empty past
-// the last tile.
+// the last tile.  BACK (forward passes): samples nb .. n - 1 are the rows
+// of `back`, those before nb the rows of x.
+template <bool BACK>
 __device__ __forceinline__ void stage_tile(
-        float* xs, const float* __restrict__ x, int ti, int NT,
+        float* xs, const float* __restrict__ x,
+        const float* __restrict__ back, long long nb, int ti, int NT,
         const Tiles& T, long long bj, long long n, long long tbase, int C,
         int cbase, bool vec, int tid, int nth) {
     if (ti < NT) {
@@ -163,6 +173,7 @@ __device__ __forceinline__ void stage_tile(
         const long long left = n - t0;     // offsets below it lie in x
         const int lim = left < (1 << 30) ? (int)left : (1 << 30);
         const float* xb = x + row_of(t0, tbase) * C + cbase;
+        const long long nx = nb - t0;      // offsets from it lie in back
         const int sC = tbase < 0 ? C : -C;
         const int cw = 1 << T.lcw;
         const int lw = vec ? 2 : 0;        // log2 of floats a copy
@@ -174,6 +185,8 @@ __device__ __forceinline__ void stage_tile(
             const bool ok = off < lim && cbase + cl < C;
             float* d = xs + r * T.rs + u * cw + cl;
             const float* src = ok ? xb + (long long)off * sC + cl : x;
+            if (BACK && ok && off >= nx)
+                src = back + (off - nx) * C + cbase + cl;
             if (vec)
                 cp_async<4>(d, src, ok);
             else
@@ -188,12 +201,14 @@ __device__ __forceinline__ void stage_tile(
 // summing its 16 samples of each tile, segments added in order; then the
 // chunk's end state from zero, E[j] (rows folded in order, threads on
 // (state, channel)).
-template <int P>
+template <int P, bool BACK = false>
 __global__ void __launch_bounds__(kThreads)
-chunk_reduce_kernel(const float* __restrict__ x, const float* __restrict__ kt,
+chunk_reduce_kernel(const float* __restrict__ x,
+                    const float* __restrict__ back,
+                    const float* __restrict__ kt,
                     const float* __restrict__ av, float* __restrict__ U,
-                    float* __restrict__ E, long long n, long long tbase,
-                    int C, int B, int L, int cw, bool vec) {
+                    float* __restrict__ E, long long n, long long nb,
+                    long long tbase, int C, int B, int L, int cw, bool vec) {
     extern __shared__ __align__(16) float sm[];
     const Tiles T(L, cw);
     const int RG = T.RG, NK = T.NK, NT = (L / RG) * NK, lcw = T.lcw;
@@ -209,8 +224,8 @@ chunk_reduce_kernel(const float* __restrict__ x, const float* __restrict__ kt,
     const int cbase = blockIdx.y * cw;
     const long long bj = (long long)j * L;
     for (int ti = 0; ti < kStages - 1; ++ti)
-        stage_tile(xs, x, ti, NT, T, bj, n, tbase, C, cbase, vec, tid,
-                   kThreads);
+        stage_tile<BACK>(xs, x, back, nb, ti, NT, T, bj, n, tbase, C, cbase,
+                         vec, tid, kThreads);
     for (int i = tid; i < V * P; i += kThreads) ks[i] = kt[i];
     for (int i = tid; i < P * P; i += kThreads) as[i] = av[i];
     for (int i = tid; i < P * cw; i += kThreads) zs[i] = 0.f;
@@ -224,8 +239,8 @@ chunk_reduce_kernel(const float* __restrict__ x, const float* __restrict__ kt,
         // whose buffer takes tile it + kStages - 1
         cp_async_wait<kStages - 2>();
         __syncthreads();
-        stage_tile(xs, x, it + kStages - 1, NT, T, bj, n, tbase, C, cbase,
-                   vec, tid, kThreads);
+        stage_tile<BACK>(xs, x, back, nb, it + kStages - 1, NT, T, bj, n,
+                         tbase, C, cbase, vec, tid, kThreads);
         if (k == 0) {
 #pragma unroll
             for (int a = 0; a < P; ++a) acc[a] = 0.f;
@@ -471,12 +486,13 @@ scan_kernel(float* __restrict__ U, const float* __restrict__ av,
 }
 
 // Y[b*V + v][c] = sum_{u<=v} h[v-u] x[b*V + u][c] + sum_a G[v][a] Z[b][a][c]
-template <int P>
+// (BACK: samples from nb on are the rows of back, as in stage_tile)
+template <int P, bool BACK = false>
 __global__ void __launch_bounds__(kThreads)
-output_kernel(const float* __restrict__ x, const float* __restrict__ h,
-              const float* __restrict__ gt, const float* __restrict__ Z,
-              float* __restrict__ y, long long n, long long tbase, int C,
-              int B, int cw, int rb) {
+output_kernel(const float* __restrict__ x, const float* __restrict__ back,
+              const float* __restrict__ h, const float* __restrict__ gt,
+              const float* __restrict__ Z, float* __restrict__ y, long long n,
+              long long nb, long long tbase, int C, int B, int cw, int rb) {
     extern __shared__ float smem[];
     const int tt = rb * V;
     float* hs = smem;                      // V
@@ -505,7 +521,10 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
         const long long t = t0 + r;
         const int c = cbase + l;
         xs[skew(r, cw) * cw + l] =
-            (t < n && c < C) ? x[row_of(t, tbase) * C + c] : 0.f;
+            (t < n && c < C)
+                ? (BACK && t >= nb ? back[(t - nb) * C + c]
+                                   : x[row_of(t, tbase) * C + c])
+                : 0.f;
     }
     __syncthreads();
 
@@ -558,16 +577,18 @@ output_kernel(const float* __restrict__ x, const float* __restrict__ h,
 // row's entering state, then the cascade of nsec <= P/2 sections, sec =
 // (b0, b1, b2, a1, a2) per section and the gain g last, per (row,
 // channel) over the staged x tiles.
-template <int P>
+template <int P, bool BACK = false>
 __global__ void __launch_bounds__(kThreads)
 chunk_scan_sos_output_kernel(const float* __restrict__ x,
+                             const float* __restrict__ back,
                              const float* __restrict__ sec,
                              const float* __restrict__ U,
                              const float* __restrict__ av,
                              const float* __restrict__ zin,
                              float* __restrict__ zrow, float* __restrict__ y,
-                             long long n, long long tbase, int C, int B,
-                             int L, int nsec, int cw, int brow, bool vec) {
+                             long long n, long long nb, long long tbase,
+                             int C, int B, int L, int nsec, int cw, int brow,
+                             bool vec) {
     constexpr int NS = P / 2;
     constexpr int CS = (5 * NS + 4) & ~3;
     constexpr int KU = P <= 8 ? 16 : 4;    // samples loaded ahead
@@ -589,7 +610,8 @@ chunk_scan_sos_output_kernel(const float* __restrict__ x,
     const int cbase = blockIdx.y * cw;
     const long long bj = (long long)j * L;
     for (int ti = 0; ti < kStages - 1; ++ti)
-        stage_tile(xs, x, ti, NT, T, bj, n, tbase, C, cbase, vec, tid, nth);
+        stage_tile<BACK>(xs, x, back, nb, ti, NT, T, bj, n, tbase, C, cbase,
+                         vec, tid, nth);
     for (int i = tid; i <= 5 * nsec; i += nth) cs[i] = sec[i];
     for (int i = tid; i < P * P; i += nth) as[i] = av[i];
     for (int i = tid; i < pc; i += nth) {
@@ -622,8 +644,8 @@ chunk_scan_sos_output_kernel(const float* __restrict__ x,
         // whose buffer takes tile it + kStages - 1
         cp_async_wait<kStages - 2>();
         __syncthreads();
-        stage_tile(xs, x, it + kStages - 1, NT, T, bj, n, tbase, C, cbase,
-                   vec, tid, nth);
+        stage_tile<BACK>(xs, x, back, nb, it + kStages - 1, NT, T, bj, n,
+                         tbase, C, cbase, vec, tid, nth);
         if (k == 0) {
             // zs[rr] = the state entering row b0 + rr
             for (int rr = 0; rr < RG && b0 + rr < B; ++rr) {
@@ -699,12 +721,12 @@ cudaError_t smem_limit(K kernel, size_t bytes) {
                                 (int)bytes);
 }
 
-template <int P>
-int run(const float* x, const float* h, const float* kt, const float* gt,
-        const float* av, const float* avl, const float* z0, float* y,
-        float* U, float* E, float* zin, float* zrow, long long n,
-        long long tbase, int C, int L, int brow, const float* sec, int nsec,
-        cudaStream_t st) {
+template <int P, bool BACK>
+int run(const float* x, const float* back, const float* h, const float* kt,
+        const float* gt, const float* av, const float* avl, const float* z0,
+        float* y, float* U, float* E, float* zin, float* zrow, long long n,
+        long long nb, long long tbase, int C, int L, int brow,
+        const float* sec, int nsec, cudaStream_t st) {
     const int B = (int)((n + V - 1) / V);
     const int nchunks = (B + L - 1) / L;
     int cw = 1;
@@ -713,14 +735,15 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
     const Tiles T(L, cw);
     if (L % T.RG || T.S > 8 || nsec > P / 2) return cudaErrorInvalidValue;
     const bool vec = cw % 4 == 0 && C % 4 == 0 &&
-                     reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+                     reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<std::uintptr_t>(back) % 16 == 0;
     const dim3 grid(nchunks, cgroups);
     const size_t sm1 = sizeof(float) *
         ((size_t)V * P + P * P + kStages * T.xs + kThreads * P + 2 * P * cw);
-    cudaError_t err = smem_limit(chunk_reduce_kernel<P>, sm1);
+    cudaError_t err = smem_limit(chunk_reduce_kernel<P, BACK>, sm1);
     if (err != cudaSuccess) return err;
-    chunk_reduce_kernel<P><<<grid, kThreads, sm1, st>>>(
-        x, kt, av, U, E, n, tbase, C, B, L, cw, vec);
+    chunk_reduce_kernel<P, BACK><<<grid, kThreads, sm1, st>>>(
+        x, back, kt, av, U, E, n, nb, tbase, C, B, L, cw, vec);
 
     // carry: NG groups of GL chunk ends, NG near sqrt(2 nchunks)
     int NG = (int)std::ceil(std::sqrt(2.0 * nchunks));
@@ -740,11 +763,11 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
         const int CS = (5 * (P / 2) + 4) & ~3;
         const size_t sm3 = sizeof(float) *
             (CS + P * P + kStages * T.xs + (2 * (size_t)T.RG + 1) * P * cw);
-        err = smem_limit(chunk_scan_sos_output_kernel<P>, sm3);
+        err = smem_limit(chunk_scan_sos_output_kernel<P, BACK>, sm3);
         if (err != cudaSuccess) return err;
-        chunk_scan_sos_output_kernel<P><<<grid, T.RG * cw, sm3, st>>>(
-            x, sec, U, av, zin, zrow, y, n, tbase, C, B, L, nsec, cw, brow,
-            vec);
+        chunk_scan_sos_output_kernel<P, BACK><<<grid, T.RG * cw, sm3, st>>>(
+            x, back, sec, U, av, zin, zrow, y, n, nb, tbase, C, B, L, nsec,
+            cw, brow, vec);
         return cudaGetLastError();
     }
     const long long items = (long long)nchunks * C;
@@ -757,10 +780,11 @@ int run(const float* x, const float* h, const float* kt, const float* gt,
     const int rows = tt + tt / 16 + 1;
     const size_t smem =
         sizeof(float) * (V + V * P + (size_t)rb * P * cw + (size_t)rows * cw);
-    err = smem_limit(output_kernel<P>, smem);
+    err = smem_limit(output_kernel<P, BACK>, smem);
     if (err != cudaSuccess) return err;
-    output_kernel<P><<<dim3((B + rb - 1) / rb, cgroups), kThreads, smem,
-                       st>>>(x, h, gt, U, y, n, tbase, C, B, cw, rb);
+    output_kernel<P, BACK><<<dim3((B + rb - 1) / rb, cgroups), kThreads,
+                             smem, st>>>(x, back, h, gt, U, y, n, nb, tbase,
+                                         C, B, cw, rb);
     return cudaGetLastError();
 }
 
@@ -773,33 +797,38 @@ const char* dsptpu_error_string(int err) {
 }
 
 // x, y: (n, C) forward (tbase = -1); in reverse the pass covers the
-// samples tbase, tbase - 1, ..., tbase - n + 1 of x and y.  h: (V,);
-// kt, gt: (V, P); av, avl: (P, P); z0: (P, C); scratch U: (B, P, C);
-// E, zin: (nchunks, P, C); zrow: (P, C) or null (with brow = -1).  P is
-// 8, 16 or 32 (tables zero-padded).  nsec > 0: the system is a stacked
-// cascade of nsec sections, sec (5 nsec + 1,) their (b0, b1, b2, a1, a2)
-// and the gain, and the SOS stage replaces the F stage (h unused).
-int dsptpu_biir(const void* x, const void* h, const void* kt, const void* gt,
-                const void* av, const void* avl, const void* z0, void* y,
-                void* U, void* E, void* zin, void* zrow, long long n,
+// samples tbase, tbase - 1, ..., tbase - n + 1 of x and y.  back: null, or
+// (n - nb, C) in a forward pass without zrow: samples nb .. n - 1 are then
+// read from back's rows, x holds the first nb (filtfilt's back extension,
+// not appended to x).  h: (V,); kt, gt: (V, P); av, avl: (P, P); z0:
+// (P, C); scratch U: (B, P, C); E, zin: (nchunks, P, C); zrow: (P, C) or
+// null (with brow = -1).  P is 8, 16 or 32 (tables zero-padded).  nsec >
+// 0: the system is a stacked cascade of nsec sections, sec (5 nsec + 1,)
+// their (b0, b1, b2, a1, a2) and the gain, and the SOS stage replaces the
+// F stage (h unused).
+int dsptpu_biir(const void* x, const void* back, const void* h,
+                const void* kt, const void* gt, const void* av,
+                const void* avl, const void* z0, void* y, void* U, void* E,
+                void* zin, void* zrow, long long n, long long nb,
                 long long tbase, int C, int P, int L, int brow,
                 const void* sec, int nsec, void* stream) {
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto m = [](void* p) { return static_cast<float*>(p); };
     auto st = static_cast<cudaStream_t>(stream);
+    if (back && (tbase >= 0 || zrow || nb < 0 || nb > n))
+        return cudaErrorInvalidValue;
+    auto go = [&](auto run_p) {
+        return run_p(f(x), f(back), f(h), f(kt), f(gt), f(av), f(avl),
+                     f(z0), m(y), m(U), m(E), m(zin), m(zrow), n,
+                     back ? nb : n, tbase, C, L, brow, f(sec), nsec, st);
+    };
     switch (P) {
         case 8:
-            return run<8>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                          m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                          brow, f(sec), nsec, st);
+            return back ? go(run<8, true>) : go(run<8, false>);
         case 16:
-            return run<16>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                           m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                           brow, f(sec), nsec, st);
+            return back ? go(run<16, true>) : go(run<16, false>);
         case 32:
-            return run<32>(f(x), f(h), f(kt), f(gt), f(av), f(avl), f(z0),
-                           m(y), m(U), m(E), m(zin), m(zrow), n, tbase, C, L,
-                           brow, f(sec), nsec, st);
+            return back ? go(run<32, true>) : go(run<32, false>);
         default:
             return cudaErrorInvalidValue;
     }

@@ -624,12 +624,15 @@ def _filtfilt_kernel(ss, zst_np, x, pad, n):
     """filtfilt through K2 (dsptpu's _filtfilt_pallas_v2 arithmetic),
     x (n, C) float32, n >= 4*128 + pad:
       forward: the front extension folds into the entering state
-        z_e = A^pad (zi x_front[0]) + Kf x_front; the back extension is
-        appended; one forward pass over n + pad samples;
+        z_e = A^pad (zi x_front[0]) + Kf x_front; one forward pass over
+        n + pad samples, K2 reading the back extension's pad rows from
+        their own tensor (nothing is appended to x);
       reverse: the state entering the aligned boundary m = 128*floor(n/128)
         from the last q = n - m + pad forward outputs, Aq z0r + Krq seg;
-        one reverse pass over the first m samples (K2's n_eff mode); the
-        outputs over [m, n) in closed form, Fr seg + Gr z0r."""
+        one reverse pass over the first m samples (K2's n_eff mode) into
+        the output's first m rows; the outputs over [m, n) in closed
+        form, Fr seg + Gr z0r, into the rest. The only signal-sized
+        tensors are the forward pass's output and the result."""
     from ..kernels.biir import blockss_filt
     V = ss.V
     m = (n // V) * V
@@ -645,17 +648,16 @@ def _filtfilt_kernel(ss, zst_np, x, pad, n):
         front = 2 * x[0] - x[1: pad + 1].flip(0)        # (pad, C)
         z_e = Apad @ (zst[:, None] * front[0][None, :]) + Kf @ front
         back = 2 * x[-1] - x[n - 1 - pad: n - 1].flip(0)  # (pad, C)
-        xb = torch.cat([x, back], 0)                    # (n + pad, C)
-    y1 = blockss_filt(ss, xb, z_e)
-    del xb                      # before the reverse pass allocates
+    y1 = blockss_filt(ss, x, z_e, back=back)            # (n + pad, C)
     with span("filtfilt.edges"):
         seg = y1[m: n + pad]                            # (q, C)
         z0r = zst[:, None] * y1[n + pad - 1][None, :]
         z_rr = Aq @ z0r + Krq @ seg
-    y2main = blockss_filt(ss, y1, z_rr, reverse=True, n_eff=m)
+        y = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    blockss_filt(ss, y1, z_rr, reverse=True, n_eff=m, out=y)
     with span("filtfilt.edges"):
-        y2tail = Fr @ seg + Gr @ z0r
-        return torch.cat([y2main, y2tail], 0)
+        torch.add(Fr @ seg, Gr @ z0r, out=y[m:])
+        return y
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,17 @@ moves x twice, U twice and y once: about 800 MB a pass at 1,000,000 x
 64, 0.24 ms at the HBM rate. A general (b, a) system keeps a scan from
 the entering states and the 128-tap product F (four launches).
 
+A forward pass may read its last rows from a second tensor (`back`:
+filtfilt's back extension, never appended to the signal), and any pass
+may write into rows of a caller's tensor (`out`: filtfilt's output,
+whose tail the caller fills).
+
 `blockss_filt` launches the kernel for a CUDA tensor and runs
 `blockss_reference`, the plain PyTorch version of the same arithmetic,
 for a CPU tensor. `launches["biir"]` counts kernel launches (one per
-pass), `launches["biir_reverse"]` those of reverse passes.
+pass), `launches["biir_reverse"]` those of reverse passes; the counters
+`route.biir.back` and `route.biir.into` (utils.profiling) the passes
+that read `back` and those that wrote into `out`, on either device.
 """
 
 import ctypes
@@ -40,16 +47,16 @@ import torch
 
 from . import _build
 from ..utils.device import full_f32
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 
 __all__ = ["blockss_filt", "blockss_reference", "biir_supported",
            "launches"]
 
 launches = {"biir": 0, "biir_reverse": 0}
 
-# dsptpu_biir(x, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, tbase,
-#             C, P, L, brow, sec, nsec, stream)
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 2 + [
+# dsptpu_biir(x, back, h, kt, gt, av, avl, z0, y, U, E, zin, zrow, n, nb,
+#             tbase, C, P, L, brow, sec, nsec, stream)
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 3 + [
     ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 _V = 128
@@ -109,30 +116,61 @@ def _advance_tail(ss, zrow, x, n):
     return pm @ zrow + (x[n - m:].to(dt).T @ Kpt).T
 
 
-def _reverse_span(x, reverse, n_eff):
-    """Number of samples a pass covers (n, or n_eff in reverse)."""
-    n = x.shape[0]
-    if n_eff is None:
-        return n
-    if not reverse or n_eff % _V or not 0 < n_eff <= n:
-        raise ValueError("n_eff: reverse passes only, a positive multiple "
-                         "of 128 that is at most n")
-    return n_eff
+def _pass_rows(x, need_state, reverse, n_eff, back, out):
+    """Number of samples a pass covers (n, n_eff in reverse, or n plus
+    back's rows), after the checks of n_eff (reverse passes: a positive
+    multiple of 128, at most n), of `back` (a forward pass without
+    need_state; (rows, C) in x's dtype and device) and of `out` (a
+    contiguous (>= that number, C) tensor of x's dtype on its device)."""
+    N = x.shape[0]
+    if n_eff is not None:
+        if not reverse or n_eff % _V or not 0 < n_eff <= N:
+            raise ValueError("n_eff: reverse passes only, a positive "
+                             "multiple of 128 that is at most n")
+        N = n_eff
+    if back is not None:
+        if reverse or need_state:
+            raise ValueError("back: forward passes without need_state only")
+        if (back.ndim != 2 or back.shape[1] != x.shape[1]
+                or back.dtype != x.dtype or back.device != x.device):
+            raise ValueError("back: (rows, C) in x's dtype, on its device")
+        N += back.shape[0]
+    if out is not None and (
+            out.ndim != 2 or out.shape[0] < N or out.shape[1] != x.shape[1]
+            or out.dtype != x.dtype or out.device != x.device
+            or not out.is_contiguous()):
+        raise ValueError("out: a contiguous (>= the pass's samples, C) "
+                         "tensor in x's dtype, on its device")
+    return N
 
 
 def blockss_reference(ss, x, z0, need_state=False, reverse=False,
-                      n_eff=None):
+                      n_eff=None, back=None, out=None):
     """Plain PyTorch version of the kernel's arithmetic, float32 tables:
     U = X K', the same chunked scan of z_b = AV z_{b-1} + U_b, then
     Y = X F' + Zstart G'. x (n, C), z0 (p, C). Returns y, or (y, z_final)
     with need_state. reverse: the same pass over the time-reversed first
-    n_eff (default n) samples, its output reversed back: (n_eff, C)."""
+    n_eff (default n) samples, its output reversed back: (n_eff, C).
+    back and out as blockss_filt takes them."""
+    if reverse and need_state:
+        raise ValueError("need_state: forward passes only")
+    N = _pass_rows(x, need_state, reverse, n_eff, back, out)
     if reverse:
-        if need_state:
-            raise ValueError("need_state: forward passes only")
-        N = _reverse_span(x, reverse, n_eff)
-        return blockss_reference(ss, x[:N].flip(0), z0).flip(0)
-    n, C = x.shape
+        y = blockss_reference(ss, x[:N].flip(0), z0).flip(0)
+    else:
+        y = _forward_reference(ss, x, z0, need_state, back)
+    if out is None:
+        return y
+    if need_state:
+        y, zf = y
+        return out[:N].copy_(y), zf
+    return out[:N].copy_(y)
+
+
+def _forward_reference(ss, x, z0, need_state, back):
+    """blockss_reference's forward pass over x, then back's rows."""
+    nb, C = x.shape
+    n = nb + (0 if back is None else back.shape[0])
     p = ss.p
     _, kt, gt, av, avl, _ = _tables(ss, x.device)
     L = _CHUNK
@@ -140,7 +178,9 @@ def blockss_reference(ss, x, z0, need_state=False, reverse=False,
     B = -(-n // _V)
     nch = -(-B // L)
     xp = torch.zeros((nch * L * _V, C), dtype=x.dtype, device=x.device)
-    xp[:n] = x
+    xp[:nb] = x
+    if back is not None:
+        xp[nb:n] = back
     X = xp.T.reshape(C, nch * L, _V)
     U = (X @ kt[:, :p]).reshape(C, nch, L, p)
     a1 = av[:p, :p].T
@@ -169,7 +209,8 @@ def blockss_reference(ss, x, z0, need_state=False, reverse=False,
 
 
 @spanned("kernel.biir")
-def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
+def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None,
+                 back=None, out=None):
     """Apply the block state-space system `ss` (V = 128) over x (n, C)
     float32 with initial state z0 (p, C). Returns y (n, C), or
     (y, z_final (p, C)) with need_state (forward, n >= 128).
@@ -177,17 +218,30 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     reverse=True runs the anti-causal pass rev(apply(rev(x))) with z0
     the state entering after the last sample; with n_eff (a multiple of
     128, at most n) only the first n_eff samples are read, z0 enters at
-    sample n_eff - 1, and y is (n_eff, C)."""
+    sample n_eff - 1, and y is (n_eff, C).
+
+    back (pad, C), forward passes without need_state: the pass runs over
+    n + pad samples, x's rows and then back's, as over their
+    concatenation, which is never made; y is (n + pad, C). out: a
+    contiguous (>= N, C) tensor that takes the pass's N output rows in
+    its first N (rows past them are left as they are); y is then the
+    view out[:N]."""
     if need_state and (reverse or n_eff is not None or x.shape[0] < _V):
         raise ValueError("need_state: forward passes with n >= 128 only")
-    N = _reverse_span(x, reverse, n_eff)
+    N = _pass_rows(x, need_state, reverse, n_eff, back, out)
+    if back is not None:
+        count("route.biir.back")
+    if out is not None:
+        count("route.biir.into")
     if x.device.type == "cpu":
-        return blockss_reference(ss, x, z0, need_state, reverse, n_eff)
+        return blockss_reference(ss, x, z0, need_state, reverse, n_eff,
+                                 back, out)
     if x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError("biir kernel takes an (n, C) float32 signal")
     if not biir_supported(ss, x.dtype):
         raise ValueError("biir kernel takes V = 128 and p <= 32")
     xc = x.contiguous()
+    bc = None if back is None else back.contiguous()
     n, C = N, xc.shape[1]
     p = ss.p
     P = _padded_p(p)
@@ -198,7 +252,8 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
     z0p[:p] = z0.to(device=dev, dtype=torch.float32)
     B = -(-n // _V)
     nch = -(-B // L)
-    y = torch.empty((n, C), dtype=torch.float32, device=dev)
+    y = (torch.empty((n, C), dtype=torch.float32, device=dev)
+         if out is None else out[:n])
     U = torch.empty((B, P, C), dtype=torch.float32, device=dev)
     E = torch.empty((nch, P, C), dtype=torch.float32, device=dev)
     zin = torch.empty((nch, P, C), dtype=torch.float32, device=dev)
@@ -206,10 +261,11 @@ def blockss_filt(ss, x, z0, need_state=False, reverse=False, n_eff=None):
             if need_state else None)
     brow = n // _V - 1 if need_state else -1
     f = _build.entry("biir", "dsptpu_biir", _ARGTYPES)
-    err = f(xc.data_ptr(), h.data_ptr(), kt.data_ptr(), gt.data_ptr(),
+    err = f(xc.data_ptr(), None if bc is None else bc.data_ptr(),
+            h.data_ptr(), kt.data_ptr(), gt.data_ptr(),
             av.data_ptr(), avl.data_ptr(), z0p.data_ptr(), y.data_ptr(),
             U.data_ptr(), E.data_ptr(), zin.data_ptr(),
-            zrow.data_ptr() if need_state else None, n,
+            zrow.data_ptr() if need_state else None, n, xc.shape[0],
             n - 1 if reverse else -1, C, P, L, brow,
             None if sec is None else sec.data_ptr(),
             0 if sec is None else ss.sections[0].shape[0],

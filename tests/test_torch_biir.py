@@ -294,7 +294,7 @@ def _k2_geometry(C, L, nchunks):
 
 
 def _emulate_k2_launches(ss, x, z0, need_state=False, reverse=False,
-                         n_eff=None, L=tbiir._CHUNK):
+                         n_eff=None, L=tbiir._CHUNK, back=None):
     """K2's three launches (csrc/biir.cu) in numpy float64, walked as the
     kernels walk: (1) chunk_reduce per (chunk, channel group): x tiles of
     RG rows x TS samples (zeros past n), each thread's 16-sample segment
@@ -305,15 +305,29 @@ def _emulate_k2_launches(ss, x, z0, need_state=False, reverse=False,
     (3) per chunk from zin[j], each row's entering state z_{b-1} (and the
     state after row `brow`), then the cascade per row (a system with
     sections) or F X_b + G z_{b-1}. Reverse runs in virtual time t' and
-    reads and writes sample tbase - t'. Returns y (n, C) in memory order,
-    or (y, z_final) with need_state."""
+    reads and writes sample tbase - t'. With back (forward), the pass
+    covers x's nb rows and then back's, each staged sample t from x below
+    nb and from back[t - nb] from it on (stage_tile's and output_kernel's
+    rule). Returns y (n, C) in memory order, or (y, z_final) with
+    need_state."""
     V, p = ss.V, ss.p
-    n = x.shape[0] if n_eff is None else n_eff
+    nb = x.shape[0] if n_eff is None else n_eff
+    n = nb + (0 if back is None else back.shape[0])
     C = x.shape[1]
     tbase = n - 1 if reverse else -1
 
     def row_of(t):
         return t if tbase < 0 else tbase - t
+
+    def samples(t):
+        r = row_of(t)
+        if back is None:
+            return x[r]
+        got = np.full((len(r), C), np.nan)
+        inx = r < nb
+        got[inx] = x[r[inx]]
+        got[~inx] = back[r[~inx] - nb]
+        return got
     B = -(-n // V)
     nch = -(-B // L)
     cw, RG, S, TS, NG, GL = _k2_geometry(C, L, nch)
@@ -333,7 +347,7 @@ def _emulate_k2_launches(ss, x, z0, need_state=False, reverse=False,
                          + np.arange(TS)[None, :])
                     tile = np.zeros((RG, TS, len(ch)))
                     ok = t < n
-                    tile[ok] = x[row_of(t[ok])][:, ch]
+                    tile[ok] = samples(t[ok])[:, ch]
                     for seg in range(S):
                         u = k * TS + seg * 16 + np.arange(16)
                         acc[seg] += np.einsum(
@@ -375,7 +389,7 @@ def _emulate_k2_launches(ss, x, z0, need_state=False, reverse=False,
             if b == brow:
                 zrow = z
     X = np.zeros((B * V, C))
-    X[:n] = x[row_of(np.arange(n))]
+    X[:n] = samples(np.arange(n))
     X = X.reshape(B, V, C)
     if ss.sections is None:
         Y = (np.einsum("vu,buc->bvc", ss.F, X)
@@ -412,17 +426,29 @@ K2_WALK = {
     "reverse": [(8, 8193, 1), (20, 8191, 64), (2, 3001, 3), (32, 8192, 33)],
     "n_eff": [(8, 12289, 3), (20, 8193, 33), (32, 3001, 64), (2, 8191, 1)],
 }
+# forward with `back` (mode "back<pad>", n = nb, the rows in x): the
+# boundary nb on a chunk edge (8192), on a tile edge (tiles of 64 samples
+# at C 1, 16 at C 3 and 64) with nb % 128 = 64 (8256, 8128, 12352) or 0
+# (4096), mid-tile (4136, 3000); back in the last chunk, or across the
+# chunk edge (8128 + 195)
+K2_WALK_BACK = [("back24", 8, 8192, 64), ("back195", 2, 8256, 1),
+                ("back24", 20, 4136, 3), ("back195", 32, 8128, 64),
+                ("back24", 8, 12352, 3), ("back195", 8, 4096, 3),
+                ("back195", 20, 3000, 1)]
 
 
 @pytest.mark.parametrize("route", ["sections", "F"])
 @pytest.mark.parametrize("mode,order,n,C", [
-    (mode, *case) for mode, cases in K2_WALK.items() for case in cases])
+    (mode, *case) for mode, cases in K2_WALK.items() for case in cases]
+    + K2_WALK_BACK)
 def test_k2_three_launch_walk_emulated(mode, order, n, C, route):
     """The emulated walk of K2's three launches against the plain version
     (what the wrapper runs on a CPU tensor) and dsptpu's Pallas kernel in
     interpret mode, both within 1e-4, in each mode, on both output routes
     (the cascade per row for a system with sections, F X + G z for one
-    without)."""
+    without). A forward pass with `back` reads its last pad rows from
+    back, the others from x; dsptpu's kernel runs on their
+    concatenation."""
     sos = butter_sos(order, 0.3)
     arr, g = sos.sos_array(), sos.g
     tss = (_cascade_ss(arr, 1.3 * g) if route == "sections"
@@ -435,17 +461,83 @@ def test_k2_three_launch_walk_emulated(mode, order, n, C, route):
     kw = dict(need_state=mode == "need_state",
               reverse=mode in ("reverse", "n_eff"),
               n_eff=(n // 128) * 128 if mode == "n_eff" else None)
-    got = _emulate_k2_launches(tss, x.astype(np.float64),
-                               z0.astype(np.float64), **kw)
+    bk, xj = {}, x
+    if mode.startswith("back"):
+        bk["back"] = rng.standard_normal((int(mode[4:]), C)).astype(
+            np.float32)
+        xj = np.concatenate([x, bk["back"]])
+    got = _emulate_k2_launches(
+        tss, x.astype(np.float64), z0.astype(np.float64), **kw,
+        **{k: v.astype(np.float64) for k, v in bk.items()})
     plain = tbiir.blockss_filt(tss, torch.as_tensor(x), torch.as_tensor(z0),
-                               **kw)
-    want = blockss_filt_pallas(jss, jnp.asarray(x), jnp.asarray(z0), TB=4,
+                               **kw, **{k: torch.as_tensor(v)
+                                        for k, v in bk.items()})
+    want = blockss_filt_pallas(jss, jnp.asarray(xj), jnp.asarray(z0), TB=4,
                                interpret=True, **kw)
     if not kw["need_state"]:
         got, plain, want = (got,), (plain,), (want,)
     for gt, pl, w in zip(got, plain, want):
         check(gt, pl.numpy(), 1e-4)
         check(gt, w, 1e-4)
+
+
+@pytest.mark.parametrize("route", ["sections", "F"])
+@pytest.mark.parametrize("nb,pad,C", [(2048, 24, 3), (2112, 195, 1),
+                                      (2000, 24, 64), (8128, 195, 3)])
+def test_k2_plain_back_and_out_are_the_concatenation(route, nb, pad, C):
+    """The plain version with `back` is the same call on
+    torch.cat([x, back]) bit for bit, through the wrapper too; with `out`
+    it writes the pass's rows into out's first rows, returns that view and
+    leaves the rows past it as they were, forward with back and reverse
+    with n_eff alike. Each use counts once (route.biir.back / .into)."""
+    sos = butter_sos(8, 0.3)
+    arr, g = sos.sos_array(), 1.3 * sos.g
+    ss = (_cascade_ss(arr, g) if route == "sections"
+          else _blockss(*_stack_cascade(arr, g)))
+    rng = np.random.default_rng(nb + pad + C)
+    x, back, z0 = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                   for s in ((nb, C), (pad, C), (ss.p, C)))
+    cat = torch.cat([x, back])
+    want = tbiir.blockss_reference(ss, cat, z0)
+    assert torch.equal(tbiir.blockss_reference(ss, x, z0, back=back), want)
+    profiling.reset()
+    assert torch.equal(tbiir.blockss_filt(ss, x, z0, back=back), want)
+    out = torch.full((nb + pad + 5, C), 7.0)
+    got = tbiir.blockss_filt(ss, x, z0, back=back, out=out)
+    assert got.data_ptr() == out.data_ptr() and got.shape == want.shape
+    assert torch.equal(out[: nb + pad], want)
+    assert bool((out[nb + pad:] == 7.0).all())
+    m = (nb // 128) * 128
+    want_r = tbiir.blockss_reference(ss, cat, z0, reverse=True, n_eff=m)
+    out = torch.full((nb + pad, C), 7.0)
+    got = tbiir.blockss_reference(ss, cat, z0, reverse=True, n_eff=m,
+                                  out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out[:m], want_r)
+    assert bool((out[m:] == 7.0).all())
+    assert profiling.counters().get("route.biir.back") == 2
+    assert profiling.counters().get("route.biir.into") == 1
+    assert tbiir.launches["biir"] == 0
+
+
+def test_k2_back_and_out_refusals():
+    """back only on forward passes without need_state, in x's dtype with
+    its C; out contiguous, of x's dtype and C, and long enough."""
+    ss = _cascade_ss(butter_sos(4, 0.2).sos_array(), 1.0)
+    x, z0 = torch.zeros(1024, 2), torch.zeros(ss.p, 2)
+    back = torch.zeros(24, 2)
+    for fn in (tbiir.blockss_filt, tbiir.blockss_reference):
+        for kw in (dict(reverse=True), dict(need_state=True)):
+            with pytest.raises(ValueError):
+                fn(ss, x, z0, back=back, **kw)
+        for bad in (torch.zeros(24, 3), torch.zeros(24, 2,
+                                                    dtype=torch.float64)):
+            with pytest.raises(ValueError, match="back"):
+                fn(ss, x, z0, back=bad)
+        for bad in (torch.zeros(1047, 2), torch.zeros(1048, 3),
+                    torch.zeros(2, 1048).T):
+            with pytest.raises(ValueError, match="out"):
+                fn(ss, x, z0, back=back, out=bad)
 
 
 def _table_counts():

@@ -15,6 +15,8 @@ resampling filters against float64) and the multitaper spectrogram,
 coherence and the whole float32 chain against its float64 run. The
 transposes (K8a-c) are exact."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -1047,6 +1049,153 @@ def test_biir_kernel_repeats_bit_for_bit(dev, mode, route):
     torch.cuda.synchronize()
     for u, v in (zip(a, b) if kw["need_state"] else [(a, b)]):
         assert torch.equal(u, v)
+
+
+def _back_system(order, route):
+    """K2 systems for the back extension's tests: the cascade with its
+    sections, the same stacked without them (F stage), or a (b, a)
+    state space of one 5-state section (F stage)."""
+    if route != "ba":
+        return _k2_system(order, route)
+    from dsptpu_torch.filters.filt import _single_ss
+    return _blockss(*_single_ss([0.2, 0.1, 0.05, 0.02, 0.01, 0.005],
+                                [1.0, -0.5, 0.25, -0.1, 0.05, -0.02]))
+
+
+def _at_offset(t):
+    """A copy of t whose storage starts 4 bytes past a 16-byte boundary:
+    K2 then stages it by 4-byte copies (vec off)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == 4
+    return v
+
+
+def _back_cases():
+    cases = [(order, C, route, None) for order in (8, 16, 32)
+             for C in (1, 3, 64, 130) for route in ("sections", "F")]
+    cases += [(8, C, route, off) for C in (4, 64)
+              for route in ("sections", "F") for off in ("x", "back")]
+    return cases + [(5, C, "ba", off) for C in (3, 64)
+                    for off in (None, "x")]
+
+
+@pytest.mark.parametrize("order,C,route,offset", _back_cases())
+def test_biir_back_is_the_concatenation_bit_for_bit(dev, order, C, route,
+                                                    offset):
+    """K2 forward reading its last pad rows from `back` gives K2 on
+    torch.cat([x, back]) bit for bit: P 8, 16, 32 (orders 8, 16, 32), C
+    1, 3, 64, 130, both output stages and a (b, a) system, x or back at
+    a 4-byte offset (4-byte copies instead of 16-byte ones), pad 24 and
+    195 across a row and a tile edge."""
+    ss = _back_system(order, route)
+    for nb, pad in ((20_011, 24), (16_320, 195)):
+        x = randn(dev, nb, C, seed=nb + C)
+        back = randn(dev, pad, C, seed=order)
+        z0 = randn(dev, ss.p, C, seed=C)
+        want = biir.blockss_filt(ss, torch.cat([x, back]), z0)
+        if offset == "x":
+            x = _at_offset(x)
+        elif offset == "back":
+            back = _at_offset(back)
+        got = launched_once("biir", lambda: biir.blockss_filt(
+            ss, x, z0, back=back))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["sections", "F"])
+def test_biir_into_out_leaves_the_rows_past_it(dev, route):
+    """A pass into a larger `out` writes its rows there (the view out[:N]
+    is returned) and leaves the rows past them as they were: the reverse
+    pass over n_eff rows, and the forward pass with back; each output
+    bit for bit the allocating call's."""
+    ss = _k2_system(8, route)
+    n, C = 70_001, 64
+    x, z0 = randn(dev, n, C, seed=11), randn(dev, ss.p, C, seed=12)
+    m = (n // 128) * 128
+    out = torch.full((n, C), 7.0, device=dev)
+    got = launched_once("biir", lambda: biir.blockss_filt(
+        ss, x, z0, reverse=True, n_eff=m, out=out))
+    assert got.data_ptr() == out.data_ptr() and got.shape == (m, C)
+    assert torch.equal(out[:m], biir.blockss_filt(ss, x, z0, reverse=True,
+                                                  n_eff=m))
+    assert bool((out[m:] == 7.0).all())
+    back = randn(dev, 24, C, seed=13)
+    out = torch.full((n + 40, C), 7.0, device=dev)
+    biir.blockss_filt(ss, x, z0, back=back, out=out)
+    assert torch.equal(out[: n + 24], biir.blockss_filt(ss, x, z0,
+                                                        back=back))
+    assert bool((out[n + 24:] == 7.0).all())
+
+
+def test_biir_back_refused_on_reverse_and_need_state(dev):
+    """`back` on a reverse or need_state pass is refused by the wrapper
+    and, before any launch, by the kernel's C entry."""
+    from dsptpu_torch.kernels import _build
+    ss = _k2_system(8, "sections")
+    n, C = 4096, 4
+    x, z0 = randn(dev, n, C), randn(dev, ss.p, C, seed=1)
+    back = randn(dev, 24, C, seed=2)
+    for kw in (dict(reverse=True), dict(reverse=True, n_eff=2048),
+               dict(need_state=True)):
+        with pytest.raises(ValueError):
+            biir.blockss_filt(ss, x, z0, back=back, **kw)
+    f = _build.entry("biir", "dsptpu_biir", biir._ARGTYPES)
+    h, kt, gt, av, avl, sec = biir._tables(ss, dev)
+    N = n + 24
+    y = torch.empty((N, C), device=dev)
+    U = torch.empty((-(-N // 128), 8, C), device=dev)
+    E = torch.empty((1, 8, C), device=dev)
+    zin = torch.empty((1, 8, C), device=dev)
+    zrow = torch.empty((8, C), device=dev)
+    z0p = torch.zeros((8, C), device=dev)
+    before = biir.launches["biir"]
+    for tbase, zr, brow in ((N - 1, None, -1), (-1, zrow, N // 128 - 1)):
+        err = f(x.data_ptr(), back.data_ptr(), h.data_ptr(), kt.data_ptr(),
+                gt.data_ptr(), av.data_ptr(), avl.data_ptr(), z0p.data_ptr(),
+                y.data_ptr(), U.data_ptr(), E.data_ptr(), zin.data_ptr(),
+                None if zr is None else zr.data_ptr(), N, n, tbase, C, 8,
+                biir._CHUNK, brow, sec.data_ptr(), ss.sections[0].shape[0],
+                _build.stream_of(x))
+        assert err != 0
+    assert biir.launches["biir"] == before
+
+
+@pytest.mark.parametrize("channels,launches", [(1, 30), (64, 32)])
+def test_filtfilt_lpc_entry_is_the_two_cat_form(dev, channels, launches,
+                                                monkeypatch):
+    """Path B at 1,000,000 x 1 and x 64: filtfilt's kernel route gives
+    the two-cat form's output bit for bit with two kernel launches fewer
+    a call (30 and 32: the two concatenations gone), one back read and
+    one write into the output a call."""
+    from torch_helpers import filtfilt_two_cats
+    filt_mod = importlib.import_module("dsptpu_torch.filters.filt")
+    seen = []
+    route = filt_mod._filtfilt_kernel
+    monkeypatch.setattr(filt_mod, "_filtfilt_kernel",
+                        lambda *a: seen.append(a) or route(*a))
+    fwd, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cuda",
+                                                channels=channels)
+    profiling.reset()
+    y, (a, e) = fwd(x)
+    c = profiling.counters()
+    assert (c.get("route.biir.back"), c.get("route.biir.into")) == (1, 1)
+    ss, zst, xf, pad, n = seen[-1]
+    assert torch.equal(y, filtfilt_two_cats(ss, zst, xf, pad))
+
+    def kernels_a_call():
+        by = profiling.device_by_kernel(lambda: fwd(x), calls=3,
+                                        exclude=("Memcpy", "Memset"))
+        return round(sum(v[1] for v in by.values()))
+    got = kernels_a_call()
+    monkeypatch.setattr(filt_mod, "_filtfilt_kernel",
+                        lambda ss, zst, xf, pad, n: filtfilt_two_cats(
+                            ss, zst, xf, pad))
+    y2, (a2, e2) = fwd(x)
+    assert torch.equal(y2, y) and torch.equal(a2, a) and torch.equal(e2, e)
+    assert (got, kernels_a_call()) == (launches, launches + 2)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from dsptpu_torch.filters.filt import (_blockss, _blockss_apply,
                                        filt_stepstate_sos)
 from dsptpu_torch.kernels import biir as tbiir
 from dsptpu_torch.utils import profiling
+from torch_helpers import filtfilt_two_cats
 
 # the module, not the function that filters/__init__ binds to `filt`
 filt_mod = importlib.import_module("dsptpu_torch.filters.filt")
@@ -310,3 +311,58 @@ def test_table_miss_and_hit_calls_agree_bit_for_bit(route, monkeypatch):
     assert set(_misses().values()) == {0}
     assert torch.equal(miss, hit)
     check(hit, want, 1e-4)
+
+
+def _ff_system(kind):
+    """(system, step state) as filtfilt builds them for Butterworth(8) at
+    0.2: the cascade of sections (the SOS output stage) or the (b, a)
+    form's single state space (the F stage)."""
+    f = dsptpu.filters.as_sos(butter(8, 0.2))
+    if kind == "sos":
+        arr = f.sos_array()
+        ss = filt_mod._cascade_ss(arr, f.g)
+        return ss, np.swapaxes(filt_stepstate_sos(arr), 0, 1).reshape(-1)
+    pr = dsptpu.filters.as_polynomial_ratio(butter(4, 0.3))
+    zi, bp, ap = filt_stepstate(np.asarray(pr.b), np.asarray(pr.a))
+    return filt_mod._design_ss(np.array([bp, ap])), zi
+
+
+@pytest.mark.parametrize("kind", ["sos", "ba"])
+@pytest.mark.parametrize("n,C,pad", [(2048, 3, 24), (2112, 1, 24),
+                                     (2000, 64, 195), (4096, 2, 195),
+                                     (1000, 1, 12)])
+def test_filtfilt_kernel_route_is_the_two_cat_form(kind, n, C, pad):
+    """The kernel route without the concatenations (K2 reading the back
+    extension from its own tensor, the reverse pass and the tail written
+    into the output) gives the two-cat form's output bit for bit, at
+    n % 128 = 0 (no tail) and otherwise, on the cascade and the (b, a)
+    systems; one back read and one write into the output a call."""
+    ss, zst = _ff_system(kind)
+    x = torch.as_tensor(np.random.default_rng(n + C).standard_normal(
+        (n, C)).astype(np.float32))
+    profiling.reset()
+    got = filt_mod._filtfilt_kernel(ss, zst, x, pad, n)
+    c = profiling.counters()
+    assert (c.get("route.biir.back"), c.get("route.biir.into")) == (1, 1)
+    assert got.shape == (n, C) and got.is_contiguous()
+    assert torch.equal(got, filtfilt_two_cats(ss, zst, x, pad))
+
+
+def test_filtfilt_lpc_entry_reads_back_and_writes_into_once(monkeypatch):
+    """Path B on the CPU: each filtfilt_lpc_entry call reads the back
+    extension through K2's second tensor once and writes into the output
+    once, and its filtfilt is the two-cat form's bit for bit."""
+    seen = []
+    route = filt_mod._filtfilt_kernel
+    monkeypatch.setattr(filt_mod, "_filtfilt_kernel",
+                        lambda *a: seen.append(a) or route(*a))
+    fwd, (x,) = dsptpu_torch.filtfilt_lpc_entry(device="cpu", n=51200,
+                                                channels=1)
+    for _ in range(2):
+        profiling.reset()
+        y, _ = fwd(x)
+        c = profiling.counters()
+        assert (c.get("route.biir.back"), c.get("route.biir.into")) == (1, 1)
+    assert len(seen) == 2
+    ss, zst, xf, pad, n = seen[-1]
+    assert torch.equal(y, filtfilt_two_cats(ss, zst, xf, pad))

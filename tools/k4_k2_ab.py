@@ -10,31 +10,35 @@ its device time by kernel (torch.profiler over 10 calls: the instance's
 name shows its route), K2 forward at the main path's shapes (the
 8th-order Butterworth cascade over 1,000,000 x 64, as sosfilt builds
 it) and K2 forward and reverse (n_eff) at path B's (filtfilt's two
-passes over the same stream), the
+passes over the same stream; forward also with the back extension read
+from its own tensor, where ROOT's K2 takes `back`), the
 device time of K2's output stage in one forward call (torch.profiler:
 the kernels whose name holds "output"), K2's device time per
 `__global__` kernel of csrc/biir.cu in one call of each of those three
 passes (so that builds with different kernels read side by side) and
 their sum, and entry(), fftfilt_entry() and filtfilt_lpc_entry() end to
-end. Prints the card (nvidia-smi name and power limit), the `-Xptxas
+end, the last also by device time a call (all of it, and the
+concatenation kernels') and kernel launches a call (memcpy and memset
+records left out). Prints the card (nvidia-smi name and power limit), the `-Xptxas
 -v` lines of biir.cu and osconv.cu and one JSON line. To compare two
 checkouts, run it on both in one call, in the order parent, change,
 change, parent.
 """
 
 import importlib
+import inspect
 import json
 import re
 
-from ab_common import (device_ms, device_ms_by_kernel, open_root,
-                       ptxas_lines, time_ms)
+from ab_common import (device_by_kernel, device_ms, device_ms_by_kernel,
+                       open_root, ptxas_lines, time_ms)
 
 
 def k2_stages(fn):
     """K2's device ms per call by `__global__` kernel of biir.cu (the
     templates `name<P>`), and their sum under "total"."""
     ms = {k: v for k, v in device_ms_by_kernel(fn, calls=5).items()
-          if re.fullmatch(r"\w+_kernel<\d+>", k)}
+          if re.fullmatch(r"\w+_kernel<\d+(?:, \w+)?>", k)}
     ms["total"] = sum(ms.values())
     return ms
 
@@ -95,6 +99,14 @@ def main():
         lambda: biir.blockss_filt(ss, xe, z0), reps=10, warmup=2)
     res["k2_b_forward_stages"] = k2_stages(
         lambda: biir.blockss_filt(ss, xe, z0))
+    if "back" in inspect.signature(biir.blockss_filt).parameters:
+        back = xe[n:].clone()
+        res["k2_b_forward_back_ms"] = time_ms(
+            lambda: biir.blockss_filt(ss, x, z0, back=back), reps=10,
+            warmup=2)
+        res["k2_b_forward_back_stages"] = k2_stages(
+            lambda: biir.blockss_filt(ss, x, z0, back=back))
+        del back
     y1 = biir.blockss_filt(ss, xe, z0)
     res["k2_b_reverse_ms"] = time_ms(lambda: biir.blockss_filt(
         ss, y1, z0, reverse=True, n_eff=m), reps=10, warmup=2)
@@ -105,6 +117,12 @@ def main():
         ss, y1, z0, reverse=True, n_eff=m))
     del xe, y1
     res["path_b_ms"] = time_ms(lambda: forward(x), reps=5, warmup=1)
+    by = device_by_kernel(lambda: forward(x), calls=10)
+    res["path_b_device_ms"] = sum(v[0] for v in by.values())
+    res["path_b_cat_ms"] = device_ms(lambda: forward(x),
+                                     "CatArrayBatchedCopy", calls=10)
+    res["path_b_kernels"] = round(sum(
+        v[1] for k, v in by.items() if not k.startswith(("Memcpy", "Memset"))))
     print(json.dumps(res), flush=True)
 
 

@@ -95,7 +95,7 @@ for key, kw in (("forward", {}), ("reverse", dict(reverse=True, n_eff=m))):
         del got, want, again
     ms = {k: v for k, v in device_ms_by_kernel(
         lambda: biir.blockss_filt(ss, x, z0, **kw), calls=5).items()
-        if re.fullmatch(r"\w+_kernel<\d+>", k)}
+        if re.fullmatch(r"\w+_kernel<\d+(?:, \w+)?>", k)}
     ms["total"] = sum(ms.values())
     res[key] = ms
     res[key + "_event_ms"] = time_ms(
