@@ -17,6 +17,13 @@ bin scale; the kernel writes (nbins, nseg, C) in bin order.
 
 The cross-spectral einsum is a complex product outside any kernel (as
 in dsptpu); it runs in full float32 (TF32 off) on the card.
+
+Tracing (utils/profiling): the spans `mt_spectrogram`,
+`mt_cross_spectra` (tapered FFT, edge correction, einsum) and
+`mt_coherence` (the cross spectra and the coherence from them); the
+counter `route.mt_spec.k3` or `route.mt_spec.torch` once an
+`mt_spectrogram` call, and `table.mt_const.hit` or `.miss` once a
+`MTConfig.const` lookup.
 """
 
 from dataclasses import dataclass, field
@@ -30,6 +37,7 @@ from .periodograms import (Periodogram, Spectrogram, WelchConfig,
 from .windows import dpss, dpsseig
 from ..utils.device import as_tensor, full_f32, resolve_device
 from ..utils.fftutil import nextfastfft
+from ..utils.profiling import count, spanned
 
 __all__ = ["allocate_output",
            "MTConfig", "MTSpectrogramConfig", "MTCrossSpectraConfig",
@@ -110,10 +118,14 @@ class MTConfig:
         "tapers" (ntapers, n), "rinv" 1/r, "w2" 2/r, for the one-sided
         bins "scale" (the doubling) and "corr" (the cross spectra's
         edge-bin 1/sqrt(2)), and K3's "stack" and "stack_scale"
-        (_stack_args)."""
+        (_stack_args). Each lookup counts `table.mt_const.hit` or
+        `.miss`."""
         key = (name, str(device), dtype)
         t = self._dev.get(key)
-        if t is None:
+        if t is not None:
+            count("table.mt_const.hit")
+        else:
+            count("table.mt_const.miss")
             nfreq = self.nfft // 2 + 1
             host = {"tapers": lambda: self.window.T,
                     "rinv": lambda: 1.0 / self.r,
@@ -244,6 +256,7 @@ class MTSpectrogramConfig:
         return (np.arange(nseg) * hop + n / 2) / self.mt_config.fs
 
 
+@spanned("mt_spectrogram")
 def mt_spectrogram(s, n=None, n_overlap=None, fs=1.0, nfft=None, nw=4,
                    ntapers=None, window=None, onesided=None, config=None,
                    device=None):
@@ -278,8 +291,10 @@ def mt_spectrogram(s, n=None, n_overlap=None, fs=1.0, nfft=None, nw=4,
     nseg = _num_segments(nsamples, n, n_overlap)
     t = (np.arange(nseg) * hop + n / 2) / config.fs
     if _stft_kernel_ok(s, n, config.nfft, hop):
+        count("route.mt_spec.k3")
         return Spectrogram(_kernel_mt_spec(s, n, n_overlap, config),
                            config.freq, t)
+    count("route.mt_spec.torch")
     frames = arraysplit(s, n, n_overlap)              # (nseg, n, *chans)
     p = _mt_power(frames.movedim(1, -1), config)      # (nseg, *chans, nfreq)
     return Spectrogram(p.movedim(-1, 0), config.freq, t)
@@ -383,6 +398,7 @@ class MTCoherenceConfig:
         return self.cs_config.freq
 
 
+@spanned("mt_cross_spectra")
 def mt_cross_power_spectra(signal, fs=1.0, demean=False, freq_range=None,
                            nfft=None, nw=4, ntapers=None, window=None,
                            config=None, device=None):
@@ -431,6 +447,7 @@ def coherence_from_cs(cs_matrix, device=None):
                                        device=coh.device), coh)
 
 
+@spanned("mt_coherence")
 def mt_coherence(signal, fs=1.0, demean=False, freq_range=None, nfft=None,
                  nw=4, ntapers=None, window=None, config=None, device=None):
     """Pairwise channel coherences (reference multitaper.jl:765-817).

@@ -14,7 +14,18 @@ to float64 where its float64 tapers meet the signal; the port keeps
 float32, and the float32 tolerance absorbs the difference. dsptpu's
 mt_pgram takes only a 1-D signal; the port's takes trailing channel dims
 like its other 1-D entry points, and each channel is held to dsptpu's
-1-D call. Host copies (dpss, dpsseig, dpss_config) match exactly."""
+1-D call. Host copies (dpss, dpsseig, dpss_config) match exactly.
+
+Path D as the benchmark's `array64_multitaper` deployment runs it
+(`pipeline.multitaper_entry`, at a small size): its spans
+(`entry` -> `mt_spectrogram` -> `kernel.stft`, `entry` ->
+`mt_coherence` -> `mt_cross_spectra`), its route counter
+(`route.mt_spec.k3` where K3's gate holds, K3's plain version standing
+in on the CPU; `route.mt_spec.torch` for float64), the taper cache's
+`table.mt_const.hit`/`.miss` counters, outputs that tracing leaves bit
+for bit as they are, and both outputs against the benchmark's plain
+float64 reference (benchmark/reference/array64_multitaper.py) within
+3e-5 of max|ref|, which the reference computed in TF32 misses."""
 
 import numpy as np
 import pytest
@@ -28,7 +39,9 @@ from dsptpu.ops import multitaper as jmt
 from dsptpu.ops import windows as jwin
 
 import dsptpu_torch
-from dsptpu_torch import kernels
+from benchmark.reference import array64_multitaper as mt_reference
+from dsptpu_torch import kernels, pipeline
+from dsptpu_torch.utils import profiling
 from dsptpu_torch.convert import mtconfig_from_numpy
 from dsptpu_torch.kernels import stft as tstft
 
@@ -251,3 +264,80 @@ def test_dpss_and_dpsseig_match_dsptpu(n, nw, K):
 def test_dpss_options_match_dsptpu(kw):
     want = np.asarray(jwin.dpss(256, 3, 4, **kw))
     assert np.array_equal(dsptpu_torch.windows.dpss(256, 3, 4, **kw), want)
+
+
+# path D at a small size: 31 frames of 4 channels, coherence over 2048
+D_N, D_C, D_COH = 16384, 4, 2048
+D_CFG = {"nfft": 1024, "overlap": 512, "nw": 4, "ntapers": 7,
+         "coh_n": D_COH, "fs": 1, "demean": False}
+
+
+@pytest.fixture
+def clean_ring():
+    """Tracing off, the ring and counters empty, before and after."""
+    profiling.tracing(False)
+    kernels.reset_launches()
+    yield
+    profiling.tracing(False)
+    kernels.reset_launches()
+
+
+def test_multitaper_entry_spans_and_counters(clean_ring):
+    fwd, (x,) = pipeline.multitaper_entry(device="cpu", n=D_N,
+                                          channels=D_C, coh_n=D_COH)
+    profiling.tracing(True)
+    traced = fwd(x)
+    recs = profiling.spans()
+    assert [r[3] for r in recs] == ["entry", "mt_spectrogram",
+                                    "kernel.stft", "mt_coherence",
+                                    "mt_cross_spectra"]
+    # parents: the spectrogram and the coherence under the entry, the
+    # stack under the spectrogram, the cross spectra under the coherence
+    idx = [r[0] for r in recs]
+    assert [r[2] for r in recs] == [-1, idx[0], idx[1], idx[0], idx[3]]
+    assert len({r[1] for r in recs}) == 1
+    # float32 at nfft 1024, hop 512 passes K3's gate: the stack route
+    # (its plain version on the CPU); 5 constants looked up, each new
+    c = profiling.counters()
+    assert c["route.mt_spec.k3"] == 1 and "route.mt_spec.torch" not in c
+    assert (c.get("table.mt_const.miss"), c.get("table.mt_const.hit")) == (
+        5, None)
+    # a second call finds every constant
+    kernels.reset_launches()
+    fwd(x)
+    c = profiling.counters()
+    assert {k: v for k, v in c.items() if k.startswith("route.mt_spec.")
+            or k.startswith("table.mt_const.")} == {
+        "route.mt_spec.k3": 1, "table.mt_const.hit": 5}
+    assert not [k for k in c if k.endswith(".miss")]
+    # tracing off: the same outputs, bit for bit, and no span recorded
+    profiling.tracing(False)
+    kernels.reset_launches()
+    plain = fwd(x)
+    assert profiling.spans() == []
+    for a, b in zip(traced, plain):
+        assert torch.equal(a, b)
+
+
+def test_mt_spectrogram_counts_the_torch_route(clean_ring):
+    """float64 fails K3's gate: batched torch.fft frames."""
+    x = torch.as_tensor(signal((8192, 2), np.float64, 11))
+    dsptpu_torch.mt_spectrogram(x, n=1024, n_overlap=512, nw=4)
+    c = profiling.counters()
+    assert c["route.mt_spec.torch"] == 1 and "route.mt_spec.k3" not in c
+
+
+def test_multitaper_entry_matches_the_benchmark_reference():
+    fwd, _ = pipeline.multitaper_entry(device="cpu", n=D_N, channels=D_C,
+                                       coh_n=D_COH)
+    gen = torch.Generator().manual_seed(2 ** 31 + 25)
+    x = torch.randn((D_N, D_C), generator=gen)
+    power, coh = fwd(x)
+    ref = mt_reference.reference(D_CFG, x, "float64")
+    tf32 = mt_reference.reference(D_CFG, x, "tf32")
+    for got, name in ((power, "power"), (coh, "coherence")):
+        want = ref[name].numpy()
+        check(got, want, 3e-5)
+        # the control: the reference computed in TF32 misses the bound
+        err = np.max(np.abs(tf32[name].numpy() - want))
+        assert err > 3e-5 * np.max(np.abs(want)), (name, err)
