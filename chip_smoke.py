@@ -27,7 +27,8 @@ to 0 just before it and read just after:
   * path D, multitaper_entry(): the multitaper spectrogram of x
     (1,000,000 x 64) float32 with 7 DPSS tapers (NW 4), nfft 1024, hop
     512, through K3's K-window stack in one launch, and the 64 x 64
-    multitaper coherence of its first 16384 samples;
+    multitaper coherence of its first 16384 samples through K9 (the
+    coherence from the tapered spectra) in one launch;
   * the K8 phase: the three transpose kernels (K8a-c), which no route
     calls, each called once through its wrapper at full size and held
     bit for bit to its plain version;
@@ -79,7 +80,7 @@ F32_FLOPS_PER_S = 67e12
 
 TOL = {"fir": 3e-5, "biir": 1e-4, "stft": 3e-5, "osconv": 3e-5,
        "biir_reverse": 1e-4, "levinson": 1e-4, "pfb2": 3e-5, "arbd": 3e-5,
-       "stft_mt": 3e-5, "coherence": 1e-4, "lags": 1e-6}
+       "stft_mt": 3e-5, "coherence": 1e-4, "lags": 1e-6, "mtcoh": 1e-5}
 
 # K8c's tile edges (bins kept, channels, frames a block), also in
 # tests/test_torch_cuda.py
@@ -609,7 +610,8 @@ DEVICE_KERNELS = {
     "stft_fused": ("stft_fused_kernel",),
     "biir": K2_STAGES, "biir_reverse": K2_STAGES,
     "osconv": ("osconv_kernel",), "levinson": ("levinson_kernel",),
-    "pfb2": ("pfb2_kernel",), "arbd": ("arbd_kernel",)}
+    "pfb2": ("pfb2_kernel",), "arbd": ("arbd_kernel",),
+    "mtcoh": ("mtcoh_kernel",)}
 
 
 CALLS_PROFILED = 2
@@ -1257,14 +1259,16 @@ def path_c(dev, n=10_000_000, arb_n=2_500_000):
 def path_d(dev, n=1_000_000, coh_n=16384):
     """Path D at full width (n, coh_n as multitaper_entry's defaults):
     K3's K-window stack against its plain version and the library's
-    rfft at the path's shapes, multitaper_entry()'s forward with its
-    launch counts, its time and a profile, and float32 against float64
-    on the card."""
+    rfft at the path's shapes, K9 against its plain version (the
+    cross-spectral einsum and coherence_from_cs, the library yardstick)
+    on the tapered spectra of the coherence's input, multitaper_entry()'s
+    forward with its launch counts, its time and a profile, and float32
+    against float64 on the card."""
     import torch
     import dsptpu_torch
     from dsptpu_torch import kernels
-    from dsptpu_torch.kernels import stft
-    from dsptpu_torch.ops.multitaper import MTConfig
+    from dsptpu_torch.kernels import mtcoh, stft
+    from dsptpu_torch.ops.multitaper import MTConfig, _tapered_fft
     from dsptpu_torch.pipeline import MT_NFFT, MT_NTAPERS, MT_NW, MT_OVERLAP
 
     nfft, hop, K = MT_NFFT, MT_NFFT - MT_OVERLAP, MT_NTAPERS
@@ -1307,6 +1311,30 @@ def path_d(dev, n=1_000_000, coh_n=16384):
     report(row)
     del fr
 
+    # K9 on the tapered spectra of the coherence's input, as
+    # mt_coherence's route makes them (the signal made contiguous first)
+    cmt = MTConfig.create(coh_n, nfft=coh_n, nw=MT_NW, ntapers=K)
+    F = _tapered_fft(x[:coh_n].T.contiguous(), cmt)
+    w2 = cmt.const("w2", dev, torch.float32)
+    corr = cmt.const("corr", dev, torch.float32)
+    nf = coh_n // 2 + 1
+    got = mtcoh.mtcoh(F, w2, corr)
+    err_k9 = compare("mtcoh", got, mtcoh.mtcoh_reference(F, w2, corr),
+                     "path D shapes, K9 vs its plain version")
+    del got
+    row_k9 = dict(
+        name="mtcoh", route="cuda", source="dsptpu_torch/csrc/mtcoh.cu",
+        replaces="none (dsptpu/ops/multitaper.py:403, a jnp.einsum)",
+        max_abs_err=err_k9,
+        ms=time_ms(lambda: mtcoh.mtcoh(F, w2, corr), inner=10),
+        plain_ms=time_ms(lambda: mtcoh.mtcoh_reference(F, w2, corr),
+                         reps=5, warmup=1),
+        library_ms=None,
+        bound=bound(8 * C * K * nf + 4 * C * C * nf,
+                    8 * K * nf * C * (C - 1) // 2))
+    report(row_k9)
+    del F
+
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1315,9 +1343,8 @@ def path_d(dev, n=1_000_000, coh_n=16384):
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.launch_counts()
     log(f"path D: launches {counts}, first call {first_ms:.1f} ms")
-    if counts["stft"] < 1:
-        raise AssertionError(f"path D missed K3: {counts}")
-    nf = coh_n // 2 + 1
+    if counts["stft"] < 1 or counts["mtcoh"] != 1:
+        raise AssertionError(f"path D missed K3 or K9: {counts}")
     if (spec.shape != (nbins, k, C) or coh.shape != (C, C, nf)
             or not (torch.isfinite(spec).all() and torch.isfinite(coh).all())):
         raise AssertionError(f"path D: shapes {tuple(spec.shape)} "
@@ -1336,7 +1363,8 @@ def path_d(dev, n=1_000_000, coh_n=16384):
             f"float64, {int(top.sum())} bins within 40 dB", by_bin=True)
     compare("coherence", coh, coh64, "path D coherence vs float64")
     row["launches"] = counts["stft"]
-    return counts, [row]
+    row_k9["launches"] = counts["mtcoh"]
+    return counts, [row, row_k9]
 
 
 def path_k8(dev, n=1_000_000, C=64, M2=(3000, 3500),
@@ -1803,7 +1831,7 @@ def main():
                     entry = line.split("'")[1] if "'" in line else line
                 if ("registers" in line or "spill" in line.lower()
                         or (name in ("stft", "osconv", "biir", "pfb2", "arbd",
-                                     "levinson")
+                                     "levinson", "mtcoh")
                             and "Compiling entry" in line)):
                     log(f"  {name}: {line.strip()}")
                 if ("bytes stack frame" in line and not
@@ -1811,7 +1839,7 @@ def main():
                     framed.append(f"{name}:{entry}")
     log(f"build: kernels with a stack frame (register arrays in local "
         f"memory): {framed if framed else 'none'}")
-    for name in ("pfb2", "biir", "arbd", "transpose", "levinson"):
+    for name in ("pfb2", "biir", "arbd", "transpose", "levinson", "mtcoh"):
         if any(f.startswith(f"{name}:") for f in framed):
             raise AssertionError(f"{name}: a template keeps registers in a "
                                  "stack frame")

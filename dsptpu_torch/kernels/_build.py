@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build_all", "load", "entry", "check", "stream_of"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "dsptpu_torch"
 SOURCES = ("fir", "biir", "stft", "osconv", "levinson", "pfb2", "arbd",
-           "transpose")
+           "transpose", "mtcoh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

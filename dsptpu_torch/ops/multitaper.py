@@ -16,14 +16,21 @@ are summed in the kernel, with the one-sided doubling folded into its
 bin scale; the kernel writes (nbins, nseg, C) in bin order.
 
 The cross-spectral einsum is a complex product outside any kernel (as
-in dsptpu); it runs in full float32 (TF32 off) on the card.
+in dsptpu); it runs in full float32 (TF32 off) on the card. Where K9's
+gate holds (a float32 signal, so complex64 spectra, with at most 16
+tapers and 908 channel-taper rows), mt_coherence takes the tapered
+spectra straight to K9 (kernels/mtcoh.py), which writes the coherence
+without the cross-spectral matrix; its plain version, on a CPU tensor,
+is the einsum and coherence_from_cs, bit for bit the other route.
 
 Tracing (utils/profiling): the spans `mt_spectrogram`,
 `mt_cross_spectra` (tapered FFT, edge correction, einsum) and
-`mt_coherence` (the cross spectra and the coherence from them); the
-counter `route.mt_spec.k3` or `route.mt_spec.torch` once an
-`mt_spectrogram` call, and `table.mt_const.hit` or `.miss` once a
-`MTConfig.const` lookup.
+`mt_coherence` (K9's route: the tapered FFT and `kernel.mtcoh`; else the
+cross spectra and the coherence from them); the counter
+`route.mt_spec.k3` or `route.mt_spec.torch` once an `mt_spectrogram`
+call, `route.mt_coh.k9` or `route.mt_coh.cs` once an `mt_coherence`
+call, and `table.mt_const.hit` or `.miss` once a `MTConfig.const`
+lookup.
 """
 
 from dataclasses import dataclass, field
@@ -35,6 +42,7 @@ import torch
 from .periodograms import (Periodogram, Spectrogram, WelchConfig,
                            _num_segments, _stft_kernel_ok, arraysplit)
 from .windows import dpss, dpsseig
+from ..kernels.mtcoh import mtcoh, mtcoh_supported
 from ..utils.device import as_tensor, full_f32, resolve_device
 from ..utils.fftutil import nextfastfft
 from ..utils.profiling import count, spanned
@@ -453,14 +461,47 @@ def mt_coherence(signal, fs=1.0, demean=False, freq_range=None, nfft=None,
     """Pairwise channel coherences (reference multitaper.jl:765-817).
     signal: (n_channels, n_samples); `config` may be an
     MTCoherenceConfig, MTCrossSpectraConfig, or MTConfig. Returns a
-    Coherence object."""
+    Coherence object. Where K9's gate holds, the tapered spectra go
+    straight to K9 (`route.mt_coh.k9`); otherwise the cross spectra of
+    mt_cross_power_spectra, then coherence_from_cs (`route.mt_coh.cs`)."""
     if isinstance(config, MTCoherenceConfig):
         config = config.cs_config
-    cs = mt_cross_power_spectra(signal, fs=fs, demean=demean,
-                                freq_range=freq_range, nfft=nfft, nw=nw,
-                                ntapers=ntapers, window=window, config=config,
-                                device=device)
-    return Coherence(coherence_from_cs(cs.power), cs.freq)
+    signal = as_tensor(signal, device)
+    if signal.is_complex():
+        raise ValueError("only real signals supported (onesided)")
+    n_channels, n_samples = signal.shape
+    if isinstance(config, MTConfig):
+        config = MTCrossSpectraConfig(n_channels, demean, freq_range, config)
+    elif config is None:
+        config = MTCrossSpectraConfig.create(
+            n_channels, n_samples, fs=fs, demean=demean,
+            freq_range=freq_range, nfft=nfft, nw=nw, ntapers=ntapers,
+            window=window)
+    elif n_channels != config.n_channels:
+        raise ValueError("channel count does not match config")
+    mtc = config.mt_config
+    idx, freqs = _freq_mask(mtc.freq, config.freq_range)
+    spectra = torch.complex64 if signal.dtype == torch.float32 else None
+    if not mtcoh_supported(n_channels, mtc.ntapers, len(freqs), spectra):
+        count("route.mt_coh.cs")
+        cs = mt_cross_power_spectra(signal, config=config)
+        return Coherence(coherence_from_cs(cs.power), cs.freq)
+    count("route.mt_coh.k9")
+    if signal.is_cuda:
+        # a transposed view (multitaper_entry's) would make the taper
+        # product and the FFT strided passes (0.17 ms against 0.01 at
+        # 64 x 16,384 on an H100); the CPU keeps its layout, and so its
+        # bits
+        signal = signal.contiguous()
+    if config.demean:
+        signal = signal - signal.mean(dim=1, keepdim=True)
+    F = _tapered_fft(signal, mtc)             # (n_channels, ntapers, nfreq)
+    corr = mtc.const("corr", F.device, torch.float32)
+    w = mtc.const("w2", F.device, torch.float32)
+    if not isinstance(idx, slice):
+        sel = torch.as_tensor(idx, device=F.device)
+        F, corr = F[:, :, sel], corr[sel]
+    return Coherence(mtcoh(F, w, corr), freqs)
 
 
 def allocate_output(config, device=None):

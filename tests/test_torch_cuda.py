@@ -12,8 +12,9 @@ Tolerances: max|d| <= 3e-5 max|ref| for FIR, STFT (one window or a
 stack; per bin for the stack), overlap-save, resampling (K6, K7 and the
 resampling filters against float64) and the multitaper spectrogram,
 <= 1e-4 for the IIR pass (both directions), Levinson, filtfilt, the
-coherence and the whole float32 chain against its float64 run. The
-transposes (K8a-c) are exact."""
+coherence and the whole float32 chain against its float64 run; <= 1e-5
+for K9 (the coherence from the tapered spectra) against its plain
+version on the same spectra. The transposes (K8a-c) are exact."""
 
 import importlib
 
@@ -24,8 +25,8 @@ import torch
 import dsptpu_torch
 from dsptpu_torch import kernels
 from dsptpu_torch.filters.filt import _blockss, _cascade_ss, _stack_cascade
-from dsptpu_torch.kernels import (arbd, biir, fir, levinson, osconv, pfb2,
-                                  stft, transpose)
+from dsptpu_torch.kernels import (arbd, biir, fir, levinson, mtcoh,
+                                  osconv, pfb2, stft, transpose)
 from dsptpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -122,7 +123,7 @@ def test_entry_runs_every_kernel(dev):
                                        "transpose2d": 0,
                                        "transpose_tall": 0,
                                        "spectro_permute": 0,
-                                       "biir_reverse": 0}
+                                       "biir_reverse": 0, "mtcoh": 0}
     psd64, s64 = fwd(x.double())
     check(psd, psd64, 1e-4)
     check(s, s64, 1e-4)
@@ -886,6 +887,90 @@ def test_multitaper_runs_the_stack_kernel(dev):
     spec64, coh64 = fwd(xe.double())
     check(spec, spec64, 3e-5)
     check(coh, coh64, 1e-4)
+
+
+def k9_inputs(x, C, n, **kw):
+    """K9's inputs as mt_coherence's route makes them for x (C, n) on the
+    card: the tapered spectra, w2 and corr (all bins)."""
+    from dsptpu_torch.ops.multitaper import _tapered_fft
+    mtc = dsptpu_torch.MTCoherenceConfig.create(C, n, **kw).cs_config.mt_config
+    F = _tapered_fft(x, mtc)
+    return (F, mtc.const("w2", F.device, torch.float32),
+            mtc.const("corr", F.device, torch.float32))
+
+
+# (C, n, kw): C and nbins that leave ragged tiles (a group of 4 channels
+# cut short, nbins % 32 != 0), K 10 (the KMAX 16 instance), one bin in
+# the last tile at nfft 16384, and the 908-row edge of shared memory
+K9_CASES = [(1, 200, {}), (3, 1000, {}), (5, 4097, {}), (33, 2500, {}),
+            (63, 640, {}), (64, 16384, {}), (7, 3000, dict(nw=6, ntapers=10)),
+            (56, 1000, dict(nw=9, ntapers=16)), (129, 300, {})]
+
+
+@pytest.mark.parametrize("C,n,kw", K9_CASES)
+def test_k9_matches_plain(dev, C, n, kw):
+    x = randn(dev, C, n, seed=C * n)
+    F, w, corr = k9_inputs(x, C, n, **kw)
+    got = launched_once("mtcoh", lambda: mtcoh.mtcoh(F, w, corr))
+    check(got, mtcoh.mtcoh_reference(F, w, corr), 1e-5)
+    diag = got[torch.arange(C), torch.arange(C)]
+    assert torch.equal(diag, torch.ones_like(diag))
+    assert torch.equal(got, got.transpose(0, 1))
+    # the same spectra with the tapers outermost (rows at other strides)
+    Ft = F.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(launched_once("mtcoh", lambda: mtcoh.mtcoh(Ft, w,
+                                                                  corr)),
+                       got)
+
+
+@pytest.mark.parametrize("freq_range", [None, (0.05, 0.3)])
+def test_k9_at_the_cell_shape_against_float64(dev, freq_range):
+    """C 64, K 7, nfft 16,384 (8,193 bins), the signal a transposed view
+    as multitaper_entry passes it: mt_coherence on a float32 signal
+    launches K9 once, and agrees with the float64 call (the cross
+    spectra), also on a frequency range."""
+    x = randn(dev, 16384, 64, seed=26).T
+    kw = dict(nw=4, ntapers=7, freq_range=freq_range)
+    kernels.reset_launches()
+    got = dsptpu_torch.mt_coherence(x, **kw)
+    assert kernels.launch_counts()["mtcoh"] == 1
+    assert profiling.counters()["route.mt_coh.k9"] == 1
+    nb = len(got.freq)
+    assert got.coherence.shape == (64, 64, nb)
+    assert nb == 8193 if freq_range is None else nb < 8193
+    want = dsptpu_torch.mt_coherence(x.double(), **kw)
+    assert kernels.launch_counts()["mtcoh"] == 1
+    assert profiling.counters()["route.mt_coh.cs"] == 1
+    check(got.coherence, want.coherence, 1e-4)
+
+
+def test_k9_refuses(dev):
+    x = randn(dev, 4, 1000, seed=3)
+    F, w, corr = k9_inputs(x, 4, 1000)
+    before = kernels.launch_counts()["mtcoh"]
+    with pytest.raises(TypeError):
+        mtcoh.mtcoh(F.to(torch.complex128), w, corr)
+    with pytest.raises(TypeError):
+        mtcoh.mtcoh(F, w.double(), corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F[:, :, ::2], w, corr[::2])
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F.transpose(1, 2).contiguous().transpose(1, 2), w,
+                    corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F[0], w, corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F, w[:3], corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F, w, corr[:-1])
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F.conj(), w, corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F.repeat(1, 5, 1)[:, :17].contiguous(),
+                            w.repeat(5)[:17], corr)
+    with pytest.raises(ValueError):
+        mtcoh.mtcoh(F, w, corr.cpu())
+    assert kernels.launch_counts()["mtcoh"] == before
 
 
 def test_stack_and_transposes_refuse(dev):

@@ -19,13 +19,22 @@ like its other 1-D entry points, and each channel is held to dsptpu's
 Path D as the benchmark's `array64_multitaper` deployment runs it
 (`pipeline.multitaper_entry`, at a small size): its spans
 (`entry` -> `mt_spectrogram` -> `kernel.stft`, `entry` ->
-`mt_coherence` -> `mt_cross_spectra`), its route counter
+`mt_coherence` -> `kernel.mtcoh`), its route counters
 (`route.mt_spec.k3` where K3's gate holds, K3's plain version standing
-in on the CPU; `route.mt_spec.torch` for float64), the taper cache's
+in on the CPU; `route.mt_spec.torch` for float64; `route.mt_coh.k9` or
+`route.mt_coh.cs` as K9's gate holds or not), the taper cache's
 `table.mt_const.hit`/`.miss` counters, outputs that tracing leaves bit
 for bit as they are, and both outputs against the benchmark's plain
 float64 reference (benchmark/reference/array64_multitaper.py) within
-3e-5 of max|ref|, which the reference computed in TF32 misses."""
+3e-5 of max|ref|, which the reference computed in TF32 misses.
+
+K9 (kernels/mtcoh.py, the coherence from the tapered spectra): its walk
+(csrc/mtcoh.cu's tiles, fold, normalisation and split of the pairs over
+the warps) emulated in float64 numpy against mt_cross_power_spectra and
+coherence_from_cs, every output element written once; its plain version
+bit for bit the cross-spectra route on the CPU; its gate."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -43,7 +52,9 @@ from benchmark.reference import array64_multitaper as mt_reference
 from dsptpu_torch import kernels, pipeline
 from dsptpu_torch.utils import profiling
 from dsptpu_torch.convert import mtconfig_from_numpy
+from dsptpu_torch.kernels import mtcoh as tmtcoh
 from dsptpu_torch.kernels import stft as tstft
+from dsptpu_torch.ops.multitaper import _tapered_fft
 
 TOL = {np.float64: 1e-10, np.float32: 3e-5}
 
@@ -290,25 +301,29 @@ def test_multitaper_entry_spans_and_counters(clean_ring):
     recs = profiling.spans()
     assert [r[3] for r in recs] == ["entry", "mt_spectrogram",
                                     "kernel.stft", "mt_coherence",
-                                    "mt_cross_spectra"]
+                                    "kernel.mtcoh"]
     # parents: the spectrogram and the coherence under the entry, the
-    # stack under the spectrogram, the cross spectra under the coherence
+    # stack under the spectrogram, K9's wrapper under the coherence
     idx = [r[0] for r in recs]
     assert [r[2] for r in recs] == [-1, idx[0], idx[1], idx[0], idx[3]]
     assert len({r[1] for r in recs}) == 1
     # float32 at nfft 1024, hop 512 passes K3's gate: the stack route
-    # (its plain version on the CPU); 5 constants looked up, each new
+    # (its plain version on the CPU); complex64 spectra of 4 channels and
+    # 7 tapers pass K9's: no cross-spectral matrix (K9's plain version on
+    # the CPU); 5 constants looked up, each new
     c = profiling.counters()
     assert c["route.mt_spec.k3"] == 1 and "route.mt_spec.torch" not in c
+    assert c["route.mt_coh.k9"] == 1 and "route.mt_coh.cs" not in c
     assert (c.get("table.mt_const.miss"), c.get("table.mt_const.hit")) == (
         5, None)
     # a second call finds every constant
     kernels.reset_launches()
     fwd(x)
     c = profiling.counters()
-    assert {k: v for k, v in c.items() if k.startswith("route.mt_spec.")
+    assert {k: v for k, v in c.items() if k.startswith("route.mt_")
             or k.startswith("table.mt_const.")} == {
-        "route.mt_spec.k3": 1, "table.mt_const.hit": 5}
+        "route.mt_spec.k3": 1, "route.mt_coh.k9": 1,
+        "table.mt_const.hit": 5}
     assert not [k for k in c if k.endswith(".miss")]
     # tracing off: the same outputs, bit for bit, and no span recorded
     profiling.tracing(False)
@@ -341,3 +356,148 @@ def test_multitaper_entry_matches_the_benchmark_reference():
         # the control: the reference computed in TF32 misses the bound
         err = np.max(np.abs(tf32[name].numpy() - want))
         assert err > 3e-5 * np.max(np.abs(want)), (name, err)
+
+
+def emulate_k9(F, w, corr, R, warps=16, tb=32):
+    """csrc/mtcoh.cu's walk in float64 numpy: for each tile of tb bins,
+    g = sqrt(w_k) corr_f F_lk on its live bins (0 past nbins), h = g /
+    sqrt(d_l), the diagonal's 1s; then each warp's share of the (group,
+    m) iterations over groups of R channels, each pair l < m written to
+    (l, m) and (m, l). Returns the output and the count of writes of
+    each element."""
+    C, K, nb = F.shape
+    out = np.full((C, C, nb), np.nan)
+    writes = np.zeros((C, C, nb), dtype=int)
+    total = sum(C - lo - 1 for lo in range(0, C, R))
+    for f0 in range(0, nb, tb):
+        f = np.arange(f0, f0 + tb)
+        live = f < nb
+        fl, fw = np.minimum(f, nb - 1), f[live]
+        g = np.where(live, F[:, :, fl], 0) * (
+            np.sqrt(w)[:, None] * np.where(live, corr[fl], 0))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            h = g / np.sqrt((np.abs(g) ** 2).sum(1))[:, None, :]
+        for l in range(C):
+            out[l, l, fw] = 1.0
+            writes[l, l, fw] += 1
+        for warp in range(warps):
+            it, end = total * warp // warps, total * (warp + 1) // warps
+            if it >= end:
+                continue
+            lo, m = 0, it
+            while m >= C - lo - 1:
+                m -= C - lo - 1
+                lo += R
+            m += lo + 1
+            for _ in range(it, end):
+                while m >= C:
+                    lo += R
+                    m = lo + 1
+                for l in range(lo, min(lo + R, m)):
+                    c = np.abs((h[l] * h[m].conj()).sum(0))[live]
+                    for a, b in ((l, m), (m, l)):
+                        out[a, b, fw] = c
+                        writes[a, b, fw] += 1
+                m += 1
+    return out, writes
+
+
+def k9_inputs(x, cfg):
+    """K9's inputs for mt_coherence(x, config=cfg) as its route makes
+    them: the tapered spectra on the selected bins, w2 and corr there."""
+    cs = cfg.cs_config
+    mtc = cs.mt_config
+    dt = x.real.dtype
+    if cs.demean:
+        x = x - x.mean(dim=1, keepdim=True)
+    F = _tapered_fft(x, mtc)
+    w, corr = mtc.const("w2", "cpu", dt), mtc.const("corr", "cpu", dt)
+    if cs.freq_range is not None:
+        sel = (torch.as_tensor(mtc.freq) > cs.freq_range[0]) & (
+            torch.as_tensor(mtc.freq) < cs.freq_range[1])
+        F, corr = F[:, :, sel], corr[sel]
+    return F, w, corr
+
+
+# (channels, samples, config kwargs): C 1, 4 and 64; bin counts that leave
+# a ragged last tile of 32 (101, 76, 33, 129, 65 and 500 bins); K 10 (the
+# KMAX 16, R 2 instance); eigenvalue weights; a frequency range
+K9_WALKS = [(1, 200, dict(nw=4)), (4, 150, dict(nw=4)),
+            (64, 64, dict(nw=4)), (5, 256, dict(nw=6, ntapers=10)),
+            (7, 130, dict(weight_by_evals=True)),
+            (6, 2000, dict(nw=3, freq_range=(0.05, 0.3)))]
+
+
+def k9_config(C, n, kw):
+    kw = dict(kw)
+    if kw.pop("weight_by_evals", False):
+        return dsptpu_torch.MTCoherenceConfig.create(
+            C, mt_config=dsptpu_torch.dpss_config(n, nw=4,
+                                                  weight_by_evals=True))
+    return dsptpu_torch.MTCoherenceConfig.create(C, n, **kw)
+
+
+@pytest.mark.parametrize("C,n,kw", K9_WALKS)
+def test_k9_walk_matches_the_cross_spectra(C, n, kw):
+    cfg = k9_config(C, n, kw)
+    x = torch.as_tensor(signal((C, n), np.float64, C * n))
+    F, w, corr = k9_inputs(x, cfg)
+    K, nb = F.shape[1:]
+    if kw.get("weight_by_evals"):
+        assert np.ptp(w.numpy()) > 0
+    assert nb % 32 and tmtcoh.mtcoh_supported(C, K, nb, torch.complex64)
+    got, writes = emulate_k9(F.numpy(), w.numpy(), corr.numpy(),
+                             R=4 if K <= 8 else 2)
+    assert (writes == 1).all()
+    want = dsptpu_torch.coherence_from_cs(
+        dsptpu_torch.mt_cross_power_spectra(x, config=cfg.cs_config).power)
+    check(got, want.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("demean", [False, True])
+@pytest.mark.parametrize("C,n,kw", K9_WALKS[:2] + K9_WALKS[4:])
+def test_k9_plain_is_the_cross_spectra_route(clean_ring, C, n, kw, demean):
+    """On a float32 CPU signal mt_coherence takes K9's route, whose plain
+    version gives, bit for bit, the cross spectra and coherence_from_cs
+    (mt_coherence before K9)."""
+    cfg = k9_config(C, n, kw)
+    cfg = dsptpu_torch.MTCoherenceConfig(dataclasses.replace(
+        cfg.cs_config, demean=demean))
+    x = torch.as_tensor(signal((C, n), np.float32, C + n) + 0.25)
+    got = dsptpu_torch.mt_coherence(x, config=cfg)
+    c = profiling.counters()
+    assert c["route.mt_coh.k9"] == 1 and "route.mt_coh.cs" not in c
+    want = dsptpu_torch.coherence_from_cs(
+        dsptpu_torch.mt_cross_power_spectra(x, config=cfg.cs_config).power)
+    assert got.coherence.dtype == torch.float32
+    assert torch.equal(got.coherence, want)
+    assert np.array_equal(got.freq, cfg.freq)
+    assert torch.equal(tmtcoh.mtcoh(*k9_inputs(x, cfg)), want)
+    assert tmtcoh.launches["mtcoh"] == 0
+
+
+def test_k9_gate_refuses_what_the_kernel_does_not_take(clean_ring):
+    ok = tmtcoh.mtcoh_supported
+    assert ok(64, 7, 8193, torch.complex64) and ok(4, 7, 2049,
+                                                   torch.complex64)
+    assert ok(1, 1, 1, torch.complex64) and ok(56, 16, 3, torch.complex64)
+    assert ok(129, 7, 5, torch.complex64)            # 903 rows
+    for args in [(64, 7, 8193, torch.complex128), (64, 7, 8193, None),
+                 (4, 17, 100, torch.complex64), (4, 0, 100, torch.complex64),
+                 (0, 7, 100, torch.complex64), (4, 7, 0, torch.complex64),
+                 (130, 7, 5, torch.complex64)]:       # 910 rows
+        assert not ok(*args), args
+    # mt_coherence outside the gate takes the cross spectra: float64, 17
+    # tapers, 130 channels of 7, and a frequency range that holds no bin
+    cases = [(signal((3, 300), np.float64, 1), dict(nw=4)),
+             (signal((3, 300), np.float32, 2), dict(nw=9, ntapers=17)),
+             (signal((130, 64), np.float32, 3), dict(nw=4)),
+             (signal((3, 300), np.float32, 4), dict(freq_range=(0.2, 0.2)))]
+    for x, kw in cases:
+        kernels.reset_launches()
+        got = dsptpu_torch.mt_coherence(torch.as_tensor(x), **kw)
+        c = profiling.counters()
+        assert c["route.mt_coh.cs"] == 1 and "route.mt_coh.k9" not in c
+        cs = dsptpu_torch.mt_cross_power_spectra(torch.as_tensor(x), **kw)
+        assert torch.equal(got.coherence, dsptpu_torch.coherence_from_cs(
+            cs.power))
