@@ -34,6 +34,16 @@ stream_filt._block_matmul for resampling; multitaper._mt_power.
 
 As in the unsharded port, float32 input is computed in float32 (dsptpu
 under x64 promotes float32 signals with float64 windows to float64).
+
+Tracing (utils.profiling): each public op runs inside a span of its own
+name (shard_fir, shard_welch, ..., compact_shards; shard_time, which
+only places a block, has none), and _reblock's work inside
+span("shard.reblock") where the layouts differ. Counters, always on:
+`shard.reblock.bytes`, the bytes of each block _reblock builds (its own
+rows copied and the rows received); `shard.p2p`, `shard.all_reduce` and
+`shard.all_gather`, one for each collective call issued (none at world
+size 1); `route.shard_fir.direct` (F.conv1d) or `route.shard_fir.os`
+(_conv_os_1d), once a _fir_local call.
 """
 
 from fractions import Fraction
@@ -44,6 +54,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..utils.device import full_f32
+from ..utils.profiling import count, span, spanned
 
 __all__ = ["shard_fir", "shard_fftfilt", "shard_welch", "shard_sosfilt",
            "shard_filtfilt",
@@ -95,36 +106,41 @@ def _reblock(local, have, want, mesh, axis):
     rank only what it holds of that rank's range (a halo, a block edge)."""
     if have == want:
         return local
-    me = _axis_rank(mesh, axis)
-    lo, hi = want[me]
-    h0 = have[me][0]
-    out = local.new_zeros((hi - lo,) + tuple(local.shape[1:]))
-    group = mesh.get_group(axis) if len(have) > 1 else None
-    ops = []
-    for r in range(len(want)):
-        a, b = max(have[me][0], want[r][0]), min(have[me][1], want[r][1])
-        if a < b:
-            if r == me:
-                out[a - lo: b - lo] = local[a - h0: b - h0]
-            else:
-                ops.append(dist.P2POp(dist.isend,
-                                      local[a - h0: b - h0].contiguous(),
-                                      dist.get_global_rank(group, r), group))
-        if r != me:
-            a, b = max(have[r][0], lo), min(have[r][1], hi)
+    with span("shard.reblock"):
+        me = _axis_rank(mesh, axis)
+        lo, hi = want[me]
+        h0 = have[me][0]
+        out = local.new_zeros((hi - lo,) + tuple(local.shape[1:]))
+        count("shard.reblock.bytes", out.numel() * out.element_size())
+        group = mesh.get_group(axis) if len(have) > 1 else None
+        ops = []
+        for r in range(len(want)):
+            a, b = max(have[me][0], want[r][0]), min(have[me][1], want[r][1])
             if a < b:
-                ops.append(dist.P2POp(dist.irecv, out[a - lo: b - lo],
-                                      dist.get_global_rank(group, r), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+                if r == me:
+                    out[a - lo: b - lo] = local[a - h0: b - h0]
+                else:
+                    ops.append(dist.P2POp(
+                        dist.isend, local[a - h0: b - h0].contiguous(),
+                        dist.get_global_rank(group, r), group))
+            if r != me:
+                a, b = max(have[r][0], lo), min(have[r][1], hi)
+                if a < b:
+                    ops.append(dist.P2POp(
+                        dist.irecv, out[a - lo: b - lo],
+                        dist.get_global_rank(group, r), group))
+        if ops:
+            count("shard.p2p")
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
 
 
 def _all_reduce(t, mesh, axis):
     """lax.psum over a mesh axis (in place on t; t when the axis has one
     rank)."""
     if _axis_size(mesh, axis) > 1:
+        count("shard.all_reduce")
         dist.all_reduce(t, group=mesh.get_group(axis))
     return t
 
@@ -240,12 +256,15 @@ def _fir_local(b, xcat):
     nb = b.shape[0]
     flat = xcat.reshape(xcat.shape[0], -1)
     if nb > _FIR_OS_CUTOFF:
+        count("route.shard_fir.os")
         y = _conv_os_1d(flat, b, out_len=flat.shape[0])[: flat.shape[0]]
     else:
+        count("route.shard_fir.direct")
         y = _fir_causal(b, flat)
     return y[nb - 1:].reshape((xcat.shape[0] - nb + 1,) + xcat.shape[1:])
 
 
+@spanned("shard_fir")
 def shard_fir(b, x, mesh, time_axis="time", channel_axis=None):
     """Causal FIR filt along axis 0, time-sharded with halo exchange.
     Arbitrary lengths: the signal is zero-padded to split evenly over
@@ -268,6 +287,7 @@ def shard_fir(b, x, mesh, time_axis="time", channel_axis=None):
 
 # shard_fftfilt shares the halo-exchange structure; the local compute is
 # the overlap-save path (K4), which _fir_local selects for long taps.
+@spanned("shard_fftfilt")
 def shard_fftfilt(b, x, mesh, time_axis="time", channel_axis=None):
     return shard_fir(b, x, mesh, time_axis, channel_axis)
 
@@ -307,6 +327,17 @@ def _bshape(v, ndim, dim):
     return v.reshape(shape)
 
 
+def _onesided_scale(n, dtype, device):
+    """Welch's one-sided weights of the n//2 + 1 bins on the device: 2,
+    and 1 at DC and (n even) at Nyquist."""
+    scale = torch.full((n // 2 + 1,), 2.0, dtype=dtype, device=device)
+    scale[0] = 1.0
+    if n % 2 == 0:
+        scale[-1] = 1.0
+    return scale
+
+
+@spanned("shard_welch")
 def shard_welch(x, n, noverlap, window, mesh, time_axis="time",
                 channel_axis=None, fs=1.0):
     """Distributed one-sided Welch PSD over axis 0 of real x.
@@ -327,10 +358,7 @@ def shard_welch(x, n, noverlap, window, mesh, time_axis="time",
     win = torch.as_tensor(win, device=frames.device).to(frames.dtype)
     p = torch.fft.rfft(frames * win, dim=-1).abs() ** 2   # (nseg, *ch, nf)
     nfreq = n // 2 + 1
-    scale = torch.full((nfreq,), 2.0, dtype=p.dtype, device=p.device)
-    scale[0] = 1.0
-    if n % 2 == 0:
-        scale[-1] = 1.0
+    scale = _onesided_scale(n, p.dtype, p.device)
     p = p * _bshape(valid.to(p.dtype), p.ndim, 0) * scale
     total = _all_reduce(p.sum(0) * winnorm, mesh, time_axis)
     psd = (total / n_valid).movedim(-1, 0)               # (nf, *ch)
@@ -341,6 +369,7 @@ def shard_welch(x, n, noverlap, window, mesh, time_axis="time",
     return out, freqs
 
 
+@spanned("shard_stft_pow")
 def shard_stft_pow(x, n, noverlap, window, mesh, time_axis="time",
                    channel_axis=None, fs=1.0, onesided=True):
     """Time-sharded spectrogram/STFT power: each shard computes the
@@ -382,6 +411,7 @@ def shard_stft_pow(x, n, noverlap, window, mesh, time_axis="time",
     return out, freqs, t
 
 
+@spanned("shard_spectrogram")
 def shard_spectrogram(x, n, noverlap, window, mesh, time_axis="time",
                       channel_axis=None, fs=1.0):
     """Sharded spectrogram (PSD mode); see shard_stft_pow. Segments
@@ -391,6 +421,7 @@ def shard_spectrogram(x, n, noverlap, window, mesh, time_axis="time",
                           channel_axis, fs=fs, onesided=True)
 
 
+@spanned("shard_mt_spectrogram")
 def shard_mt_spectrogram(x, config, n_overlap=None, mesh=None,
                          time_axis="time", channel_axis=None):
     """Time-sharded multitaper spectrogram: per-shard segment framing
@@ -428,6 +459,7 @@ def _gathered_states(v, mesh, axis):
     if nsh == 1:
         return [v]
     vs = [torch.empty_like(v) for _ in range(nsh)]
+    count("shard.all_gather")
     dist.all_gather(vs, v.contiguous(), group=mesh.get_group(axis))
     return vs
 
@@ -502,6 +534,7 @@ def _filtfilt_forward(ss, flat, zst, pad, T_np, mesh, time_axis):
     return y0 + _zir(ss, zin, flat), zin, v
 
 
+@spanned("shard_sosfilt")
 def shard_sosfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
     """Time-sharded biquad cascade via the stacked block state-space pass
     (filters.filt._blockss_apply): each shard filters its block from zero
@@ -530,6 +563,7 @@ def shard_sosfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
                         n_local)
 
 
+@spanned("shard_filtfilt")
 def shard_filtfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
     """Zero-phase (forward + anti-causal) SOS filtering across time
     shards, the distributed form of filters.filtfilt, with the same
@@ -715,6 +749,7 @@ def _shard_filtfilt_padded(sos, g, x, mesh, time_axis, cax, nsh):
 # resampling
 # ---------------------------------------------------------------------------
 
+@spanned("shard_resample")
 def shard_resample(h, ratio, x, mesh, time_axis="time", channel_axis=None):
     """Time-sharded streaming polyphase resample (rational ratio or
     integer interp/decim): the distributed form of FIRFilter's
@@ -791,6 +826,7 @@ def shard_resample(h, ratio, x, mesh, time_axis="time", channel_axis=None):
                         (nsh * out_max,) + tuple(x.shape[1:])), out_counts)
 
 
+@spanned("compact_shards")
 def compact_shards(y, out_counts):
     """Squeeze the per-shard zero padding out of a shard_resample
     result. A DTensor's valid rows move to torch.chunk blocks of the
@@ -832,6 +868,7 @@ def _replicated(signal, mesh):
     return _signal(signal, mesh)
 
 
+@spanned("shard_mt_cross_power_spectra")
 def shard_mt_cross_power_spectra(signal, mesh, config=None,
                                  shard_axis="time", fs=1.0, demean=False,
                                  freq_range=None, **kwargs):
@@ -902,6 +939,7 @@ def shard_mt_cross_power_spectra(signal, mesh, config=None,
                              freqs)
 
 
+@spanned("shard_mt_coherence")
 def shard_mt_coherence(signal, mesh, config=None, shard_axis="time",
                        fs=1.0, demean=False, freq_range=None, **kwargs):
     """Pairwise channel coherences from the taper-sharded cross spectra.

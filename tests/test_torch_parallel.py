@@ -16,19 +16,24 @@ spectrogram and resampling, 1e-4 for the IIR ops, which bench.py gives
 filtfilt). dsptpu under x64 may compute float32 input in float64 (its
 float64 windows and taps promote it); the port keeps float32."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 from fractions import Fraction
 from scipy import signal as sp
+import torch
 
 import dsptpu
 import dsptpu.parallel as jpar
 import dsptpu_torch
 import dsptpu_torch.parallel as tpar
 from dsptpu.filters.filt import _sos_arrays
+from dsptpu_torch import kernels
 from dsptpu_torch.parallel import Sharded
+from dsptpu_torch.utils import profiling
 
 TOL = {np.float64: 1e-9, np.float32: 3e-5}
 IIR_TOL = {np.float64: 1e-9, np.float32: 1e-4}
@@ -563,3 +568,176 @@ def test_dryrun_multichip():
                          "filtfilt", "sharded_entry"}
 
 
+# ---------------------------------------------------------------------------
+# tracing: the sharded layer's spans and counters
+# ---------------------------------------------------------------------------
+
+# the collective counters, one for each call issued
+COLLECTIVES = ("shard.p2p", "shard.all_reduce", "shard.all_gather")
+
+
+@pytest.fixture
+def mesh1():
+    """A world-size-1 gloo mesh in this process; its group is destroyed
+    after the test."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    mesh = tpar.make_mesh(device_type="cpu")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _local(v):
+    """A result as numpy: a DTensor as its local block, dataclasses by
+    field, tuples element by element."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor):
+        v = v.to_local()
+    if isinstance(v, torch.Tensor):
+        return v.numpy()
+    if dataclasses.is_dataclass(v):
+        return tuple(_local(getattr(v, f.name))
+                     for f in dataclasses.fields(v))
+    if isinstance(v, tuple):
+        return tuple(_local(u) for u in v)
+    return np.asarray(v)
+
+
+def traced(fn):
+    """(fn() with tracing off, fn() with tracing on, the span ring's
+    records of the traced call, its counters)."""
+    off = fn()
+    kernels.reset_launches()
+    profiling.tracing(True)
+    try:
+        on = fn()
+    finally:
+        profiling.tracing(False)
+    recs = profiling.spans()
+    counters = profiling.counters()
+    kernels.reset_launches()
+    return off, on, recs, counters
+
+
+def tree(recs):
+    """[(span name, its parent's name or None)] in the order opened."""
+    names = {r[0]: r[3] for r in recs}
+    return [(r[3], names.get(r[2])) for r in recs]
+
+
+def test_sharded_entry_spans_and_counters_at_world_size_1(mesh1):
+    n, C = 20000, 3
+    fwd, (xs,) = dsptpu_torch.sharded_entry(mesh1, n=n, channels=C)
+    off, on, recs, counters = traced(lambda: fwd(xs))
+    same(_local(off), _local(on))
+    assert tree(recs) == [
+        ("entry", None), ("shard_fir", "entry"),
+        ("shard.reblock", "shard_fir"), ("shard_sosfilt", "entry"),
+        ("kernel.biir", "shard_sosfilt"), ("shard_welch", "entry"),
+        ("shard.reblock", "shard_welch")]
+    # the FIR's block with its 126-row left halo, Welch's with the
+    # n - hop = 512-row right halo past the hop-multiple block
+    welch_rows = -(-n // 512) * 512 + 512
+    assert counters["shard.reblock.bytes"] == 4 * C * ((n + 126) + welch_rows)
+    assert counters["route.shard_fir.direct"] == 1
+    assert "route.shard_fir.os" not in counters
+    assert not set(COLLECTIVES) & set(counters)
+
+
+def _sos():
+    return ports(sp.butter(4, 0.2, output="sos"))
+
+
+def _mt_cfg():
+    return dsptpu_torch.MTConfig.create(128, nw=2, nfft=128)
+
+
+# (case, the call on a (4096, 2) float32 block and the mesh, the spans it
+# records as (name, parent), the FIR route it counts)
+SHARD_OPS = [
+    ("fir", lambda x, m: tpar.shard_fir(rng(5).standard_normal(31), x, m),
+     [("shard_fir", None), ("shard.reblock", "shard_fir")], "direct"),
+    ("fftfilt", lambda x, m: tpar.shard_fftfilt(
+        rng(6).standard_normal(600), x, m),
+     [("shard_fftfilt", None), ("shard_fir", "shard_fftfilt"),
+      ("shard.reblock", "shard_fir")], "os"),
+    ("welch", lambda x, m: tpar.shard_welch(x, 256, 128, np.hanning(256),
+                                            m),
+     [("shard_welch", None), ("shard.reblock", "shard_welch")], None),
+    ("stft_pow", lambda x, m: tpar.shard_stft_pow(
+        x, 256, 128, np.hanning(256), m, onesided=False),
+     [("shard_stft_pow", None), ("shard.reblock", "shard_stft_pow")], None),
+    ("spectrogram", lambda x, m: tpar.shard_spectrogram(
+        x, 256, 192, np.hamming(256), m),
+     [("shard_spectrogram", None), ("shard_stft_pow", "shard_spectrogram"),
+      ("shard.reblock", "shard_stft_pow")], None),
+    ("mt_spectrogram", lambda x, m: tpar.shard_mt_spectrogram(
+        x, _mt_cfg(), 64, m),
+     [("shard_mt_spectrogram", None),
+      ("shard.reblock", "shard_mt_spectrogram")], None),
+    ("sosfilt", lambda x, m: tpar.shard_sosfilt(_sos(), 1.0, x, m),
+     [("shard_sosfilt", None), ("kernel.biir", "shard_sosfilt")], None),
+    ("filtfilt", lambda x, m: tpar.shard_filtfilt(_sos(), 1.0, x, m),
+     [("shard_filtfilt", None)] + [("kernel.biir", "shard_filtfilt")] * 4,
+     None),
+    ("resample", lambda x, m: tpar.compact_shards(*tpar.shard_resample(
+        np.asarray(dsptpu_torch.resample_filter(Fraction(3, 2))),
+        Fraction(3, 2), x, m)),
+     [("shard_resample", None), ("shard.reblock", "shard_resample"),
+      ("compact_shards", None)], None),
+    ("mt_cross_power_spectra", lambda x, m:
+     tpar.shard_mt_cross_power_spectra(x.T[:, :1024], m, nw=4),
+     [("shard_mt_cross_power_spectra", None)], None),
+    ("mt_coherence", lambda x, m: tpar.shard_mt_coherence(
+        x.T[:, :1024], m, nw=4),
+     [("shard_mt_coherence", None),
+      ("shard_mt_cross_power_spectra", "shard_mt_coherence")], None),
+]
+
+
+@pytest.mark.parametrize("case,call,spans,route", SHARD_OPS,
+                         ids=[c[0] for c in SHARD_OPS])
+def test_shard_op_spans_and_bits_with_tracing(mesh1, case, call, spans,
+                                              route):
+    """Each public op at world size 1 records its own span (and
+    _reblock's where the layouts differ), issues no collective, and
+    gives the same bits with tracing on as off."""
+    x = torch.as_tensor(rng(27).standard_normal((4096, 2)).astype(
+        np.float32))
+    off, on, recs, counters = traced(lambda: call(x, mesh1))
+    same(_local(off), _local(on))
+    assert tree(recs) == spans
+    assert not set(COLLECTIVES) & set(counters)
+    fir = {k for k in counters if k.startswith("route.shard_fir.")}
+    assert fir == ({f"route.shard_fir.{route}"} if route else set())
+    if not any(s[0] == "shard.reblock" for s in spans):
+        assert "shard.reblock.bytes" not in counters
+
+
+def test_collective_counters_at_world_size_4(pool):
+    """The chain of sharded_entry on 4 ranks, op by op on DTensor blocks:
+    each rank issues one exchange for the FIR's left halo and one for
+    Welch's right halo, one all_gather of the cascade's boundary states
+    and one all_reduce of Welch's sums, and builds the two halo blocks."""
+    from dsptpu_torch.kernels import reset_launches
+    from dsptpu_torch.utils.profiling import counters
+    n, C = 8192, 2
+    x = rng(28).standard_normal((n, C)).astype(np.float32)
+    taps, sos, win = dsptpu_torch.pipeline.chain_params()
+    pool.run(reset_launches)
+    y = run(pool, tpar.shard_fir, taps, Sharded(x), mesh=(1, 4),
+            form="dtensor")
+    z = run(pool, tpar.shard_sosfilt, sos, 1.0, Sharded(y), mesh=(1, 4),
+            form="dtensor")
+    run(pool, tpar.shard_welch, Sharded(z), 1024, 512, win, mesh=(1, 4),
+        form="dtensor")
+    got = [{k: v for k, v in c.items() if k.startswith(("shard.",
+                                                         "route.shard_fir"))}
+           for c in pool.run(counters)]
+    nlocal = n // 4
+    assert got == [{"shard.p2p": 2, "shard.all_gather": 1,
+                    "shard.all_reduce": 1, "route.shard_fir.direct": 1,
+                    "shard.reblock.bytes": 4 * C * ((nlocal + 126)
+                                                    + (nlocal + 512))}] * 4
