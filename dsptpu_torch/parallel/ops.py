@@ -23,9 +23,12 @@ group (mesh.get_group(time_axis)):
     log-depth ppermute;
   * spectral sums and one-row broadcasts: all_reduce, as lax.psum.
 
-Locally every op runs the port's own hooks, the ones dsptpu's ops call:
-ops.dspbase._fir_causal (F.conv1d in full float32) or _conv_os_1d above
-512 taps (K4 where its gate holds); filters.filt._blockss_apply with
+Locally every op runs the port's own hooks, the ones dsptpu's ops call,
+by the gates the unsharded port applies: for the FIR, K1
+(kernels/fir.py) where dspbase.filt takes it (real float32, 2-512 taps,
+a block of at least 32,768 and 4 nb rows), _conv_os_1d above 512 taps
+(K4 where its gate holds), else ops.dspbase._fir_causal (F.conv1d in
+full float32); filters.filt._blockss_apply with
 need_state (K2 forward with need_state where its gate holds: float32,
 p <= 32, n >= 512 per shard; the reverse pass with state flips the
 block and takes the same forward pass, where dsptpu mirrors its tables
@@ -42,8 +45,8 @@ span("shard.reblock") where the layouts differ. Counters, always on:
 `shard.reblock.bytes`, the bytes of each block _reblock builds (its own
 rows copied and the rows received); `shard.p2p`, `shard.all_reduce` and
 `shard.all_gather`, one for each collective call issued (none at world
-size 1); `route.shard_fir.direct` (F.conv1d) or `route.shard_fir.os`
-(_conv_os_1d), once a _fir_local call.
+size 1); `route.shard_fir.k1` (K1), `route.shard_fir.os` (_conv_os_1d)
+or `route.shard_fir.direct` (F.conv1d), once a _fir_local call.
 """
 
 from fractions import Fraction
@@ -251,13 +254,22 @@ def _as_dtensor(local, mesh, dims, shape):
 # ---------------------------------------------------------------------------
 
 def _fir_local(b, xcat):
-    """Causal FIR on the halo-extended local block; valid part only."""
+    """Causal FIR on the halo-extended local block; valid part only. K1
+    filters the block from zero history, so its rows nb - 1 on, whose
+    history the halo holds, are the valid part."""
+    from ..kernels.fir import fir, fir_supported
     from ..ops.dspbase import _FIR_OS_CUTOFF, _conv_os_1d, _fir_causal
     nb = b.shape[0]
     flat = xcat.reshape(xcat.shape[0], -1)
+    n = flat.shape[0]
+    rtype = torch.promote_types(b.dtype, flat.dtype)
     if nb > _FIR_OS_CUTOFF:
         count("route.shard_fir.os")
-        y = _conv_os_1d(flat, b, out_len=flat.shape[0])[: flat.shape[0]]
+        y = _conv_os_1d(flat, b, out_len=n)[:n]
+    elif fir_supported(nb, rtype) and n >= max(32768, 4 * nb):
+        # dspbase.filt's gate for K1: a real float32 result
+        count("route.shard_fir.k1")
+        y = fir(flat.to(rtype), b.to(rtype))
     else:
         count("route.shard_fir.direct")
         y = _fir_causal(b, flat)

@@ -1324,6 +1324,27 @@ def test_shard_sosfilt_runs_k2_need_state(dev, nccl_mesh):
     check(y.to_local(), dsptpu_torch.sosfilt(sos, x), 1e-4)
 
 
+def test_shard_fir_runs_k1(dev, nccl_mesh):
+    """shard_fir at 1,000,000 x 64 with the chain's 127 taps: one K1
+    launch on the halo-extended block, bit for bit filt's K1 on the
+    block itself (each output the same tap-ordered sum); and
+    sharded_entry's PSD equals entry()'s within 3e-5."""
+    from dsptpu_torch import parallel
+    from dsptpu_torch.pipeline import chain_params
+    taps = torch.as_tensor(chain_params()[0], device=dev)
+    x = randn(dev, 1_000_000, 64, seed=11)
+    profiling.reset()
+    y = launched_once("fir", lambda: parallel.shard_fir(taps, x, nccl_mesh))
+    assert {k: v for k, v in profiling.counters().items()
+            if k.startswith("route.shard_fir.")} == {"route.shard_fir.k1": 1}
+    want = launched_once("fir", lambda: dsptpu_torch.filt(taps, x))
+    assert torch.equal(y.to_local(), want)
+    del x, y, want
+    fwd, (xs,) = dsptpu_torch.sharded_entry(nccl_mesh)
+    efwd, (xe,) = dsptpu_torch.entry()
+    check(fwd(xs).to_local(), efwd(xe)[0], 3e-5)
+
+
 def test_stream_reader_to_cuda(dev, tmp_path):
     """native.StreamReader copies each chunk through a pinned buffer to
     the card; the chunks equal the file's samples."""

@@ -716,6 +716,50 @@ def test_shard_op_spans_and_bits_with_tracing(mesh1, case, call, spans,
         assert "shard.reblock.bytes" not in counters
 
 
+# (rows, taps, dtype, the route _fir_local takes, the reference): K1 by
+# dspbase.filt's gate (real float32, 2-512 taps, a block of at least
+# 32,768 and 4 nb rows), F.conv1d outside it, overlap-save above 512 taps
+SHARD_FIR_ROUTES = [
+    (40000, "chain", np.float32, "k1", "dsptpu"),
+    (40000, "chain", np.float64, "direct", "scipy"),
+    (40000, "one", np.float32, "direct", "scipy"),
+    (8192, "chain", np.float32, "direct", "scipy"),
+    (40000, "long", np.float32, "os", "scipy")]
+
+
+@pytest.mark.parametrize("n,taps,dtype,route,vs", SHARD_FIR_ROUTES,
+                         ids=[f"{r[1]}-{r[0]}-{r[2].__name__}"
+                              for r in SHARD_FIR_ROUTES])
+def test_shard_fir_route_at_world_size_1(mesh1, n, taps, dtype, route, vs):
+    """shard_fir on a (n, 2) block counts the route it takes, once, and
+    runs K1 (here its plain version) on the halo-extended block inside
+    shard_fir's span where the gate holds, K4's above 512 taps."""
+    b = {"chain": dsptpu_torch.pipeline.chain_params()[0],
+         "one": np.array([0.7], np.float32),
+         "long": rng(29).standard_normal(600).astype(np.float32)}[taps]
+    x = rng(30).standard_normal((n, 2)).astype(dtype)
+    off, on, recs, counters = traced(lambda: tpar.shard_fir(
+        torch.as_tensor(b), torch.as_tensor(x), mesh1))
+    same(_local(off), _local(on))
+    fir = {k: v for k, v in counters.items()
+           if k.startswith("route.shard_fir.")}
+    assert fir == {f"route.shard_fir.{route}": 1}
+    spans = [("shard_fir", None)]
+    if b.shape[0] > 1:
+        spans.append(("shard.reblock", "shard_fir"))
+    if route != "direct":
+        spans.append(({"k1": "kernel.fir", "os": "kernel.osconv"}[route],
+                      "shard_fir"))
+    assert tree(recs) == spans
+    if vs == "dsptpu":
+        want = jax_ref(("fir_route", n, taps), lambda x: jpar.shard_fir(
+            b, x, jpar.make_mesh((1, 1), devices=jax.devices()[:1])), x)
+    else:
+        want = sp.lfilter(b.astype(np.float64), [1.0],
+                          x.astype(np.float64), axis=0)
+    check(_local(on), want, TOL[dtype])
+
+
 def test_collective_counters_at_world_size_4(pool):
     """The chain of sharded_entry on 4 ranks, op by op on DTensor blocks:
     each rank issues one exchange for the FIR's left halo and one for
