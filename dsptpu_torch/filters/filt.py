@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ..ops import dspbase
 from ..ops.dspbase import _as_1d, _flatten_channels, _float_type
-from ..utils.device import as_tensor, full_f32
+from ..utils.device import as_tensor, full_f32, to_host
 from ..utils.profiling import count, span, spanned, table_cache
 from .coefficients import (PolynomialRatio, Biquad, SecondOrderSections,
                            ZeroPoleGain, as_sos, coefb, coefa)
@@ -89,9 +89,10 @@ def _rec_tables(A_np, S):
     return T2, powers[S], powers[1: S + 1]
 
 
-def _const(a, like):
-    """Host numpy table as a tensor of like's dtype on like's device."""
-    return torch.as_tensor(a, device=like.device).to(like.dtype)
+def _const(a, like, site="blockss.table"):
+    """Host numpy table as a tensor of like's dtype on like's device (an
+    upload counted as `sync.<site>`, utils.device.as_tensor)."""
+    return as_tensor(a, like.device, site).to(like.dtype)
 
 
 @full_f32()
@@ -324,9 +325,8 @@ def sos_arrays(f):
         return f.sos_array(), f.g
     if isinstance(f, Biquad):
         return np.array([[f.b0, f.b1, f.b2, f.a1, f.a2]]), 1.0
-    if isinstance(f, torch.Tensor):
-        f = f.detach().cpu().numpy()
-    arr = np.asarray(f, dtype=np.float64).reshape(-1, 5)
+    arr = np.asarray(to_host(f, "sosfilt.sos"), dtype=np.float64).reshape(
+        -1, 5)
     return arr, 1.0
 
 
@@ -388,13 +388,6 @@ def filt(f, a=None, x=None, si=None, device=None):
         return dspbase.filt(coefb(f), coefa(f), a if x is None else x,
                             si=si, device=device)
     return dspbase.filt(f, a, x, si=si, device=device)
-
-
-def _host(v):
-    """A coefficient vector as host numpy (tensors are copied back)."""
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
-    return np.asarray(v)
 
 
 class DF2TFilter:
@@ -513,10 +506,11 @@ def filtfilt(f, a=None, x=None, device=None):
                       else device)
         return _filtfilt_fir(_as_1d(f, "b", x.device), x)
     x = as_tensor(x, device)
-    b = np.atleast_1d(_host(f))
-    a = np.atleast_1d(_host(a))
+    b = np.atleast_1d(to_host(f, "filtfilt.coefs"))
+    a = np.atleast_1d(to_host(a, "filtfilt.coefs"))
     if len(a) == 1:
-        return _filtfilt_fir(torch.as_tensor(b / a[0], device=x.device), x)
+        return _filtfilt_fir(as_tensor(b / a[0], x.device, "filtfilt.fir"),
+                             x)
     # real rational TFs go through the SOS cascade: the companion-form
     # state space of a high-order polynomial is badly conditioned in
     # float32. The pad stays at the TF form's 3*(max(len)-1).
@@ -553,7 +547,7 @@ def _filtfilt_ss(ss, zi_np, flat, pad):
     if pad and n >= 4 * ss.V + pad and _kernel_iir_ok(ss, n, flat.dtype):
         return _filtfilt_kernel(ss, zi_np, flat, pad, n)
     flat = flat.to(_float_type(flat.dtype))
-    z = _const(zi_np, flat)
+    z = _const(zi_np, flat, "filtfilt.zi")
     ext = _extrapolate(flat, pad)
     y1, _ = _blockss_apply(ss, ext, z[:, None] * ext[0][None, :],
                            need_state=False)

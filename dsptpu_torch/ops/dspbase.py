@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import as_tensor, no_tf32
+from ..utils.device import as_tensor, no_tf32, to_host
 from ..utils.fftutil import fftintype
 from ..utils.profiling import count, spanned
 
@@ -179,8 +179,8 @@ def _filt_iir(b, a, x, si=None):
     # sequential form: their transition powers overflow.
     fast = None
     if sz > 0 and not (b.is_complex() or a.is_complex()):
-        bh = b.detach().cpu().numpy().astype(np.float64)
-        ah = a.detach().cpu().numpy().astype(np.float64)
+        bh = to_host(b, "filt.b").astype(np.float64)
+        ah = to_host(a, "filt.a").astype(np.float64)
         roots = np.roots(ah / ah[0]) if len(ah) > 1 else np.zeros(0)
         if len(roots) == 0 or np.max(np.abs(roots)) < 1.0 - 1e-9:
             fast = (bh, ah)

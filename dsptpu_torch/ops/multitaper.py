@@ -142,8 +142,9 @@ class MTConfig:
                     "corr": lambda: _edge_corr(self.nfft, nfreq),
                     "stack": lambda: _stack_args(self)[0],
                     "stack_scale": lambda: _stack_args(self)[1]}[name]()
-            t = self._dev[key] = torch.as_tensor(
-                np.ascontiguousarray(host), device=device).to(dtype)
+            t = self._dev[key] = as_tensor(
+                np.ascontiguousarray(host), device, "mt_const." + name).to(
+                    dtype)
         return t
 
 
@@ -435,7 +436,7 @@ def mt_cross_power_spectra(signal, fs=1.0, demean=False, freq_range=None,
     w = config.const("w2", F.device, rdt)
     idx, freqs = _freq_mask(config.freq, freq_range)
     if not isinstance(idx, slice):
-        F = F[:, :, torch.as_tensor(idx, device=F.device)]
+        F = F[:, :, as_tensor(idx, F.device, "mt_cross_spectra.idx")]
     # S^{lm}(f) = sum_k w_k J_k^l(f) conj(J_k^m(f))
     with full_f32():
         out = torch.einsum("lkf,mkf->lmf", F * w[:, None], F.conj())

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import as_tensor
+from ..utils.device import as_tensor, to_host
 from ..utils.fftutil import nextfastfft, fftintype
 from ..utils.profiling import spanned
 from . import windows as _windows
@@ -150,9 +150,7 @@ def _resolve_window(window, n):
     if callable(window):
         win = np.asarray(window(n), dtype=np.float64)
     else:
-        if isinstance(window, torch.Tensor):
-            window = window.detach().cpu().numpy()
-        win = np.asarray(window, dtype=np.float64)
+        win = np.asarray(to_host(window, "window"), dtype=np.float64)
         if win.shape[0] != n:
             raise ValueError("length of window must match input")
     return win, float(np.sum(win ** 2))
@@ -307,16 +305,16 @@ def _periodogram2(s, nfft, fs, ptype):
     wt[0, :] = 1.0
     wt[-1, :] = 1.0 if n1 % 2 == 0 else 2.0
     seg = np.where(wavenum < kmax, wavenum, kmax)  # overflow bucket
-    flat = (mag * torch.as_tensor(wt, device=mag.device).to(mag.dtype)
-            ).reshape(-1)
+    flat = (mag * as_tensor(wt, mag.device, "periodogram.weights").to(
+        mag.dtype)).reshape(-1)
     sums = mag.new_zeros(kmax + 1).index_add_(
-        0, torch.as_tensor(seg.reshape(-1), device=mag.device), flat)
+        0, as_tensor(seg.reshape(-1), mag.device, "periodogram.bins"), flat)
     sums = sums[:kmax] / r
     if ptype == 2:
         counts = np.zeros(kmax + 1)
         np.add.at(counts, seg.reshape(-1), wt.reshape(-1))
-        sums = sums / torch.as_tensor(np.maximum(counts[:kmax], 1.0),
-                                      device=mag.device).to(sums.dtype)
+        sums = sums / as_tensor(np.maximum(counts[:kmax], 1.0), mag.device,
+                                "periodogram.counts").to(sums.dtype)
     return Periodogram(sums, np.arange(kmax) * (fs / nmin))
 
 

@@ -47,6 +47,11 @@ rows copied and the rows received); `shard.p2p`, `shard.all_reduce` and
 `shard.all_gather`, one for each collective call issued (none at world
 size 1); `route.shard_fir.k1` (K1), `route.shard_fir.os` (_conv_os_1d)
 or `route.shard_fir.direct` (F.conv1d), once a _fir_local call.
+Each upload and read-back counts `sync.<site>` inside a span of that
+name (utils.device), an upload's bytes `upload.bytes`: on the card the
+host waits for the stream there. A warm shard_welch call has three:
+`sync.shard_welch.window` (the float64 window's upload) and two
+`sync.shard_welch.scale` (the one-sided weights' two host scalars).
 """
 
 from fractions import Fraction
@@ -56,7 +61,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..utils.device import full_f32
+from ..utils.device import as_tensor, full_f32, to_host
 from ..utils.profiling import count, span, spanned
 
 __all__ = ["shard_fir", "shard_fftfilt", "shard_welch", "shard_sosfilt",
@@ -159,13 +164,7 @@ def _signal(x, mesh):
     the mesh's device."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x), device=_mesh_device(mesh))
-
-
-def _host_array(a):
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    return as_tensor(x, _mesh_device(mesh), "shard.signal")
 
 
 def _channel_axis(x, channel_axis):
@@ -343,9 +342,13 @@ def _onesided_scale(n, dtype, device):
     """Welch's one-sided weights of the n//2 + 1 bins on the device: 2,
     and 1 at DC and (n even) at Nyquist."""
     scale = torch.full((n // 2 + 1,), 2.0, dtype=dtype, device=device)
-    scale[0] = 1.0
-    if n % 2 == 0:
-        scale[-1] = 1.0
+    # each write of a host scalar is an upload of one element, which
+    # waits for the stream on the card
+    for i in ((0, -1) if n % 2 == 0 else (0,)):
+        count("sync.shard_welch.scale")
+        count("upload.bytes", scale.element_size())
+        with span("sync.shard_welch.scale"):
+            scale[i] = 1.0
     return scale
 
 
@@ -363,11 +366,12 @@ def shard_welch(x, n, noverlap, window, mesh, time_axis="time",
     (n//2+1, *chans) replicated over the time axis, freqs (float64)."""
     x = _signal(x, mesh)
     cax = _channel_axis(x, channel_axis)
-    win = np.asarray(_host_array(window), dtype=np.float64)
+    win = np.asarray(to_host(window, "shard_welch.window"), dtype=np.float64)
     frames, valid, nseg, n_valid = _segments(x, n, noverlap, mesh,
                                              time_axis, cax)
     winnorm = 1.0 / (float(np.sum(win ** 2)) * fs)
-    win = torch.as_tensor(win, device=frames.device).to(frames.dtype)
+    win = as_tensor(win, frames.device, "shard_welch.window").to(
+        frames.dtype)
     p = torch.fft.rfft(frames * win, dim=-1).abs() ** 2   # (nseg, *ch, nf)
     nfreq = n // 2 + 1
     scale = _onesided_scale(n, p.dtype, p.device)
@@ -399,10 +403,11 @@ def shard_stft_pow(x, n, noverlap, window, mesh, time_axis="time",
     if window is None:
         norm2 = float(n)
     else:
-        win = np.asarray(_host_array(window), dtype=np.float64)
+        win = np.asarray(to_host(window, "shard_stft_pow.window"),
+                         dtype=np.float64)
         norm2 = float(np.sum(win ** 2))
-        frames = frames * torch.as_tensor(win, device=frames.device).to(
-            frames.dtype)
+        frames = frames * as_tensor(win, frames.device,
+                                    "shard_stft_pow.window").to(frames.dtype)
     F = (torch.fft.rfft(frames, dim=-1) if onesided
          else torch.fft.fft(frames, dim=-1))
     pw = (F.abs() ** 2).movedim(-1, 1)                  # (nseg, nf, *ch)
@@ -411,7 +416,7 @@ def shard_stft_pow(x, n, noverlap, window, mesh, time_axis="time",
         scale[1:] *= 2.0
         if n % 2 == 0:
             scale[-1] /= 2.0
-    scale = torch.as_tensor(scale, device=pw.device).to(pw.dtype)
+    scale = as_tensor(scale, pw.device, "shard_stft_pow.scale").to(pw.dtype)
     pw = pw * _bshape(scale, pw.ndim, 1) * _bshape(valid.to(pw.dtype),
                                                    pw.ndim, 0)
     ntime = _axis_size(mesh, time_axis)
@@ -485,7 +490,7 @@ def _affine_scan(T_np, v, mesh, axis, reverse=False):
     and a Horner walk in rank order (the same order on every rank and in
     every run). v: (p, C)."""
     vs = _gathered_states(v, mesh, axis)
-    T = torch.as_tensor(T_np, device=v.device).to(v.dtype)
+    T = as_tensor(T_np, v.device, "shard_scan.T").to(v.dtype)
     k = _axis_rank(mesh, axis)
     z = torch.zeros_like(v)
     for j in (range(len(vs) - 1, k, -1) if reverse else range(k)):
@@ -501,8 +506,9 @@ def _zir(ss, zin, like):
                           need_state=False)[0]
 
 
-def _sos_host(sos):
-    return np.asarray(_host_array(sos), dtype=np.float64).reshape(-1, 5)
+def _sos_host(sos, op):
+    return np.asarray(to_host(sos, op + ".sos"),
+                      dtype=np.float64).reshape(-1, 5)
 
 
 def _w_of(ss):
@@ -521,6 +527,13 @@ def _apow(T_np, nsh):
     return out
 
 
+def _table(a, like):
+    """A host table of shard_filtfilt as a tensor beside like (an upload,
+    counted as `sync.shard_filtfilt.table`)."""
+    from ..filters.filt import _const
+    return _const(a, like, "shard_filtfilt.table")
+
+
 def _filtfilt_forward(ss, flat, zst, pad, T_np, mesh, time_axis):
     """shard_filtfilt's forward pass over this rank's block flat (nlocal,
     C): one pass from zero state (K2 with need_state), the state chain
@@ -528,7 +541,7 @@ def _filtfilt_forward(ss, flat, zst, pad, T_np, mesh, time_axis):
     folded in as the state entering after it from the steady-state
     init. Returns (y1, the state entering the block, the block's own
     end state from zero)."""
-    from ..filters.filt import _blockss_apply, _const
+    from ..filters.filt import _blockss_apply
     nlocal = flat.shape[0]
     idx = _axis_rank(mesh, time_axis)
     powers = ss.powers
@@ -536,12 +549,12 @@ def _filtfilt_forward(ss, flat, zst, pad, T_np, mesh, time_axis):
     y0, v = _blockss_apply(ss, flat, flat.new_zeros((ss.p, flat.shape[1])),
                            need_state=True)
     front = 2 * flat[:1] - flat[1: pad + 1].flip(0)        # (pad, C)
-    z_e = _const(powers[pad], flat) @ (zst * front[0][None, :]) + _const(
+    z_e = _table(powers[pad], flat) @ (zst * front[0][None, :]) + _table(
         Kf, flat) @ front
     z_e = _all_reduce(z_e if idx == 0 else torch.zeros_like(z_e), mesh,
                       time_axis)
     zin = _affine_scan(T_np, v, mesh, time_axis)
-    zin = zin + _const(_apow(T_np, _axis_size(mesh, time_axis))[idx],
+    zin = zin + _table(_apow(T_np, _axis_size(mesh, time_axis))[idx],
                        flat) @ z_e
     return y0 + _zir(ss, zin, flat), zin, v
 
@@ -555,7 +568,7 @@ def shard_sosfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
     the entering-state correction is the zero-input response (_zir: the
     same pass on zeros from the entering state)."""
     from ..filters.filt import _blockss_apply, _cascade_ss
-    sos = _sos_host(sos)
+    sos = _sos_host(sos, "shard_sosfilt")
     x = _signal(x, mesh)
     cax = _channel_axis(x, channel_axis)
     p = 2 * sos.shape[0]
@@ -594,7 +607,7 @@ def shard_filtfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
     the signal is extended in-array with the odd-symmetric back extension
     plus zeros, and the anti-causal initial state is injected at the true
     extension end (_shard_filtfilt_padded)."""
-    sos = _sos_host(sos)
+    sos = _sos_host(sos, "shard_filtfilt")
     x = _signal(x, mesh)
     cax = _channel_axis(x, channel_axis)
     nsec = sos.shape[0]
@@ -609,7 +622,7 @@ def shard_filtfilt(sos, g, x, mesh, time_axis="time", channel_axis=None):
 @full_f32()
 def _filtfilt_blocks(sos, g, x, mesh, time_axis, cax, nsh):
     """shard_filtfilt on blocks of n / nsh samples, a multiple of 128."""
-    from ..filters.filt import (_blockss_apply, _cascade_ss, _const,
+    from ..filters.filt import (_blockss_apply, _cascade_ss,
                                 filt_stepstate_sos)
     from ..ops.dspbase import _float_type
     nsec = sos.shape[0]
@@ -636,16 +649,16 @@ def _filtfilt_blocks(sos, g, x, mesh, time_axis, cax, nsh):
     flat = xs.reshape(nlocal, -1)
     flat = flat.to(_float_type(flat.dtype, torch.float32))
     idx = _axis_rank(mesh, time_axis)
-    zst = _const(zstack, flat)[:, None]                   # (p, 1)
+    zst = _table(zstack, flat)[:, None]                   # (p, 1)
 
     y1, zin, v = _filtfilt_forward(ss, flat, zst, pad, T_np, mesh,
                                    time_axis)
 
     # ---- back extension (forward through it, then reversed) ----
-    exit_s = _const(T_np, flat) @ zin + v
+    exit_s = _table(T_np, flat) @ zin + v
     back = 2 * flat[-1:] - flat[nlocal - pad - 1: nlocal - 1].flip(0)
-    y1b = _const(Fpad, flat) @ back + _const(Gpad, flat) @ exit_s
-    z_re = _const(Apad, flat) @ (zst * y1b[-1][None, :]) + _const(
+    y1b = _table(Fpad, flat) @ back + _table(Gpad, flat) @ exit_s
+    z_re = _table(Apad, flat) @ (zst * y1b[-1][None, :]) + _table(
         Kr, flat) @ y1b
     z_re = _all_reduce(z_re if idx == nsh - 1 else torch.zeros_like(z_re),
                        mesh, time_axis)
@@ -654,7 +667,7 @@ def _filtfilt_blocks(sos, g, x, mesh, time_axis, cax, nsh):
     yr, w = _blockss_apply(ss, y1, flat.new_zeros((p, flat.shape[1])),
                            need_state=True, reverse=True)
     zrin = _affine_scan(T_np, w, mesh, time_axis, reverse=True)
-    zrin = zrin + _const(Apow[nsh - 1 - idx], flat) @ z_re
+    zrin = zrin + _table(Apow[nsh - 1 - idx], flat) @ z_re
     # reverse zero-input response == time-flipped forward response
     y2 = yr + _zir(ss, zrin, flat).flip(0)
     return _time_output(y2.reshape((nlocal,) + tuple(xs.shape[1:])), mesh,
@@ -692,7 +705,7 @@ def _shard_filtfilt_padded(sos, g, x, mesh, time_axis, cax, nsh):
     true extension end n_inj = n + pad, propagated per shard with host
     A-power tables (shards past the injection point take a row-shifted
     zero-input response)."""
-    from ..filters.filt import (_blockss_apply, _cascade_ss, _const,
+    from ..filters.filt import (_blockss_apply, _cascade_ss,
                                 filt_stepstate_sos)
     from ..ops.dspbase import _float_type
     nsec = sos.shape[0]
@@ -730,7 +743,7 @@ def _shard_filtfilt_padded(sos, g, x, mesh, time_axis, cax, nsh):
                                                         hi - n_orig]
     flat = xs.reshape(nlocal, -1)
     flat = flat.to(_float_type(flat.dtype, torch.float32))
-    zst = _const(zstack, flat)[:, None]
+    zst = _table(zstack, flat)[:, None]
 
     y1, _, _ = _filtfilt_forward(ss, flat, zst, pad, T_np, mesh, time_axis)
 
@@ -747,7 +760,7 @@ def _shard_filtfilt_padded(sos, g, x, mesh, time_axis, cax, nsh):
     zrin = _affine_scan(T_np, w, mesh, time_axis, reverse=True)
     # the last rank's suffix is empty
     corr0 = _zir(ss, zrin, flat).flip(0) if idx < nsh - 1 else 0
-    zadj = _const(Aadj[idx], flat) @ z_inj
+    zadj = _table(Aadj[idx], flat) @ z_inj
     resp = _zir(ss, zadj, flat).flip(0)
     s = int(sshift[idx])
     shifted = torch.cat([resp[s:], resp.new_zeros((s,)
@@ -784,7 +797,7 @@ def shard_resample(h, ratio, x, mesh, time_axis="time", channel_axis=None):
     L, M = ratio.numerator, ratio.denominator
     x = _signal(x, mesh)
     cax = _channel_axis(x, channel_axis)
-    h = _host_array(h)
+    h = to_host(h, "shard_resample.h")
     nsh = _axis_size(mesh, time_axis)
     n_orig = x.shape[0]
     n_local = -(-n_orig // nsh)

@@ -1,8 +1,17 @@
-"""Device placement and float32 precision rules of the port.
+"""Device placement, transfers and float32 precision rules of the port.
 
 A tensor argument stays on its own device. A numpy array, list or
 scalar goes to the `device` the caller names, "cuda" by default; if
 CUDA is absent that raises, so nothing runs on the CPU by accident.
+
+The two transfer helpers name the points where data crosses between
+the host and the device: `as_tensor` uploads host data, `to_host` reads
+a tensor back. Each transfer counts `sync.<site>` (utils.profiling's
+always-on counters; an upload also adds its bytes to `upload.bytes`)
+and runs inside span("sync.<site>"). They count on every device, so
+tests on the CPU pin them; on a CUDA device each `sync.*` is a point
+where the host waits for the stream: PyTorch's blocking copy to the
+host synchronizes it, and so does an upload from pageable memory.
 """
 
 import contextlib
@@ -10,7 +19,9 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "resolve_device", "no_tf32", "full_f32",
+from .profiling import count, span
+
+__all__ = ["as_tensor", "to_host", "resolve_device", "no_tf32", "full_f32",
            "check_full_f32"]
 
 
@@ -22,11 +33,31 @@ def resolve_device(device=None):
     return dev
 
 
-def as_tensor(v, device=None):
-    """v itself if it is a tensor, else v as a tensor on `device`."""
+def as_tensor(v, device=None, site="as_tensor"):
+    """v itself if it is a tensor (uncounted), else v as a tensor on
+    `device`: an upload, counted as `sync.<site>` and its bytes as
+    `upload.bytes`, inside span("sync.<site>")."""
     if isinstance(v, torch.Tensor):
         return v
-    return torch.as_tensor(np.asarray(v), device=resolve_device(device))
+    a = np.asarray(v)
+    dev = resolve_device(device)
+    name = "sync." + site
+    count(name)
+    count("upload.bytes", a.nbytes)
+    with span(name):
+        return torch.as_tensor(a, device=dev)
+
+
+def to_host(t, site):
+    """t's value as a host numpy array: a tensor is read back, counted
+    as `sync.<site>`, inside span("sync.<site>"); host data passes
+    through uncounted, as np.asarray(t)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    name = "sync." + site
+    count(name)
+    with span(name):
+        return t.detach().cpu().numpy()
 
 
 def no_tf32():

@@ -1345,6 +1345,53 @@ def test_shard_fir_runs_k1(dev, nccl_mesh):
     check(fwd(xs).to_local(), efwd(xe)[0], 3e-5)
 
 
+# the five benchmarked entries at a small size, each on the routes of its
+# cells (K1 needs 32,768 rows, K4's cluster route 8 channels)
+WAIT_ENTRIES = {
+    "entry": lambda mesh: dsptpu_torch.entry(n=131_072, channels=8),
+    "filtfilt_lpc_entry": lambda mesh: dsptpu_torch.filtfilt_lpc_entry(
+        n=128_000, channels=4),
+    "fftfilt_entry": lambda mesh: dsptpu_torch.fftfilt_entry(
+        n=200_000, channels=16),
+    "multitaper_entry": lambda mesh: dsptpu_torch.multitaper_entry(
+        n=65_536, channels=8, coh_n=4096),
+    "sharded_entry": lambda mesh: dsptpu_torch.sharded_entry(
+        mesh, n=131_072, channels=8),
+}
+
+
+@pytest.mark.parametrize("name", list(WAIT_ENTRIES))
+def test_every_wait_of_a_warm_call_is_counted(dev, request, name):
+    """The synchronizing operations of 3 warm calls, as
+    torch.cuda.set_sync_debug_mode("warn") reports them, equal the
+    program's `sync.*` counters (utils.device) of the same calls: no
+    wait goes uncounted, and nothing is counted that does not wait."""
+    import warnings
+    mesh = (request.getfixturevalue("nccl_mesh")
+            if name == "sharded_entry" else None)
+    fwd, (x,) = WAIT_ENTRIES[name](mesh)
+    fwd(x)
+    fwd(x)
+    torch.cuda.synchronize()
+    profiling.reset()
+    calls = 3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fwd(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    syncs = [w for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    counted = {k: v for k, v in profiling.counters().items()
+               if k.startswith("sync.")}
+    assert len(syncs) == sum(counted.values()), (len(syncs), counted)
+
+
 def test_stream_reader_to_cuda(dev, tmp_path):
     """native.StreamReader copies each chunk through a pinned buffer to
     the card; the chunks equal the file's samples."""

@@ -299,13 +299,17 @@ def test_multitaper_entry_spans_and_counters(clean_ring):
     profiling.tracing(True)
     traced = fwd(x)
     recs = profiling.spans()
-    assert [r[3] for r in recs] == ["entry", "mt_spectrogram",
-                                    "kernel.stft", "mt_coherence",
-                                    "kernel.mtcoh"]
+    assert [r[3] for r in recs] == [
+        "entry", "mt_spectrogram", "sync.mt_const.stack",
+        "sync.mt_const.stack_scale", "kernel.stft", "mt_coherence",
+        "sync.mt_const.tapers", "sync.mt_const.corr", "sync.mt_const.w2",
+        "kernel.mtcoh"]
     # parents: the spectrogram and the coherence under the entry, the
-    # stack under the spectrogram, K9's wrapper under the coherence
+    # stack and its constants' first uploads under the spectrogram, K9's
+    # wrapper and its constants' under the coherence
     idx = [r[0] for r in recs]
-    assert [r[2] for r in recs] == [-1, idx[0], idx[1], idx[0], idx[3]]
+    assert [r[2] for r in recs] == [-1, idx[0]] + [idx[1]] * 3 + [
+        idx[0]] + [idx[5]] * 4
     assert len({r[1] for r in recs}) == 1
     # float32 at nfft 1024, hop 512 passes K3's gate: the stack route
     # (its plain version on the CPU); complex64 spectra of 4 channels and
@@ -316,6 +320,11 @@ def test_multitaper_entry_spans_and_counters(clean_ring):
     assert c["route.mt_coh.k9"] == 1 and "route.mt_coh.cs" not in c
     assert (c.get("table.mt_const.miss"), c.get("table.mt_const.hit")) == (
         5, None)
+    # each miss uploads its constant once (utils.device)
+    assert {k for k in c if k.startswith("sync.")} == {
+        f"sync.mt_const.{k}" for k in ("stack", "stack_scale", "tapers",
+                                       "corr", "w2")}
+    assert all(c[k] == 1 for k in c if k.startswith("sync."))
     # a second call finds every constant
     kernels.reset_launches()
     fwd(x)
@@ -325,6 +334,7 @@ def test_multitaper_entry_spans_and_counters(clean_ring):
         "route.mt_spec.k3": 1, "route.mt_coh.k9": 1,
         "table.mt_const.hit": 5}
     assert not [k for k in c if k.endswith(".miss")]
+    assert not [k for k in c if k.startswith(("sync.", "upload."))]
     # tracing off: the same outputs, bit for bit, and no span recorded
     profiling.tracing(False)
     kernels.reset_launches()

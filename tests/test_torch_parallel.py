@@ -636,7 +636,15 @@ def test_sharded_entry_spans_and_counters_at_world_size_1(mesh1):
         ("entry", None), ("shard_fir", "entry"),
         ("shard.reblock", "shard_fir"), ("shard_sosfilt", "entry"),
         ("kernel.biir", "shard_sosfilt"), ("shard_welch", "entry"),
-        ("shard.reblock", "shard_welch")]
+        ("shard.reblock", "shard_welch"),
+        ("sync.shard_welch.window", "shard_welch")] + [
+        ("sync.shard_welch.scale", "shard_welch")] * 2
+    # shard_welch's waits: the float64 window (1024 points) uploaded and
+    # the one-sided weights' two float32 host scalars written
+    assert {k: v for k, v in counters.items()
+            if k.startswith(("sync.", "upload."))} == {
+        "sync.shard_welch.window": 1, "sync.shard_welch.scale": 2,
+        "upload.bytes": 8 * 1024 + 2 * 4}
     # the FIR's block with its 126-row left halo, Welch's with the
     # n - hop = 512-row right halo past the hop-multiple block
     welch_rows = -(-n // 512) * 512 + 512
@@ -654,34 +662,54 @@ def _mt_cfg():
     return dsptpu_torch.MTConfig.create(128, nw=2, nfft=128)
 
 
+# shard_filtfilt's host tables, uploaded each call (utils.device), and
+# the span of each
+_FF_TABLE = ("sync.shard_filtfilt.table", "shard_filtfilt")
+_FF_T = ("sync.shard_scan.T", "shard_filtfilt")
+_FF_K2 = ("kernel.biir", "shard_filtfilt")
+# the one-sided Welch weights' host scalars and a window's upload
+_WELCH_WAITS = [("sync.shard_welch.window", "shard_welch")] + [
+    ("sync.shard_welch.scale", "shard_welch")] * 2
+_STFT_WAITS = [("sync.shard_stft_pow.window", "shard_stft_pow"),
+               ("sync.shard_stft_pow.scale", "shard_stft_pow")]
+
 # (case, the call on a (4096, 2) float32 block and the mesh, the spans it
-# records as (name, parent), the FIR route it counts)
+# records as (name, parent), the FIR route it counts); a span `sync.<site>`
+# is an upload or read-back (utils.device): the taps given as a host
+# array, and each op's host tables and windows
 SHARD_OPS = [
     ("fir", lambda x, m: tpar.shard_fir(rng(5).standard_normal(31), x, m),
-     [("shard_fir", None), ("shard.reblock", "shard_fir")], "direct"),
+     [("shard_fir", None), ("sync.as_tensor", "shard_fir"),
+      ("shard.reblock", "shard_fir")], "direct"),
     ("fftfilt", lambda x, m: tpar.shard_fftfilt(
         rng(6).standard_normal(600), x, m),
      [("shard_fftfilt", None), ("shard_fir", "shard_fftfilt"),
-      ("shard.reblock", "shard_fir")], "os"),
+      ("sync.as_tensor", "shard_fir"), ("shard.reblock", "shard_fir")],
+     "os"),
     ("welch", lambda x, m: tpar.shard_welch(x, 256, 128, np.hanning(256),
                                             m),
-     [("shard_welch", None), ("shard.reblock", "shard_welch")], None),
+     [("shard_welch", None), ("shard.reblock", "shard_welch")]
+     + _WELCH_WAITS, None),
     ("stft_pow", lambda x, m: tpar.shard_stft_pow(
         x, 256, 128, np.hanning(256), m, onesided=False),
-     [("shard_stft_pow", None), ("shard.reblock", "shard_stft_pow")], None),
+     [("shard_stft_pow", None), ("shard.reblock", "shard_stft_pow")]
+     + _STFT_WAITS, None),
     ("spectrogram", lambda x, m: tpar.shard_spectrogram(
         x, 256, 192, np.hamming(256), m),
      [("shard_spectrogram", None), ("shard_stft_pow", "shard_spectrogram"),
-      ("shard.reblock", "shard_stft_pow")], None),
+      ("shard.reblock", "shard_stft_pow")] + _STFT_WAITS, None),
     ("mt_spectrogram", lambda x, m: tpar.shard_mt_spectrogram(
         x, _mt_cfg(), 64, m),
      [("shard_mt_spectrogram", None),
-      ("shard.reblock", "shard_mt_spectrogram")], None),
+      ("shard.reblock", "shard_mt_spectrogram")]
+     + [(f"sync.mt_const.{k}", "shard_mt_spectrogram")
+        for k in ("tapers", "rinv", "scale")], None),
     ("sosfilt", lambda x, m: tpar.shard_sosfilt(_sos(), 1.0, x, m),
      [("shard_sosfilt", None), ("kernel.biir", "shard_sosfilt")], None),
     ("filtfilt", lambda x, m: tpar.shard_filtfilt(_sos(), 1.0, x, m),
-     [("shard_filtfilt", None)] + [("kernel.biir", "shard_filtfilt")] * 4,
-     None),
+     [("shard_filtfilt", None), _FF_TABLE, _FF_K2, _FF_TABLE, _FF_TABLE,
+      _FF_T, _FF_TABLE, _FF_K2] + [_FF_TABLE] * 5
+     + [_FF_K2, _FF_T, _FF_TABLE, _FF_K2], None),
     ("resample", lambda x, m: tpar.compact_shards(*tpar.shard_resample(
         np.asarray(dsptpu_torch.resample_filter(Fraction(3, 2))),
         Fraction(3, 2), x, m)),
